@@ -15,8 +15,8 @@ import math
 
 import torch
 
-from movslam_tpu.io.mvimage import FrameType, MotionVectorImage
-
+from ..device import resolve_device
+from ..io.mvimage import FrameType, MotionVectorImage
 from ..ops import express
 from ..ops.lk import lk_track
 from ..ops.mvselect import point_covered
@@ -214,15 +214,17 @@ def _merge_reloc(seg_reloc, state: TrackState, capacity):
 
 class MOVExtractor:
     """Host-side facade choosing among the extraction programs
-    (MOVExtractor.h: threshold, coverageThreshold, relocalizationDistance)."""
+    (MOVExtractor.h: threshold, coverageThreshold, relocalizationDistance).
+    Runs on the card unless `device` says otherwise; a CUDA request without
+    a card raises (device.resolve_device)."""
 
     def __init__(self, threshold=25, coverage_threshold=0.2,
-                 relocalization_distance=0.05, capacity=MAX_TRACKS, device="cpu"):
+                 relocalization_distance=0.05, capacity=MAX_TRACKS, device="cuda"):
         self.threshold = float(threshold)
         self.coverage_threshold = float(coverage_threshold)
         self.relocalization_distance = float(relocalization_distance)
         self.capacity = capacity
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         # Persistent id counter (mCurrentId): survives map resets, which clear
         # the previous frame but not the extractor (MOVExtractor.h:38).
         self._next_id_dev = None

@@ -18,12 +18,11 @@ import time
 import numpy as np
 import torch
 
-from movslam_tpu.core.map import MapPoint, update_normals_batch
-from movslam_tpu.core.matcher import FuseCandidates, fuse, search_for_triangulation
-from movslam_tpu.core.verbose import Verbose
-
 from ..ops.ba import ba_solve_wire, build_obs_by_point
 from ..ops.triangulate import MAX_PAIRS, triangulate_pairs_np
+from .map import MapPoint, update_normals_batch
+from .matcher import FuseCandidates, fuse, search_for_triangulation
+from .verbose import Verbose
 
 # LBA capacities of the reference (padded there for one compile; here they
 # are the problem-size caps that keep both drives on the same problems).

@@ -20,19 +20,18 @@ import time
 import numpy as np
 import torch
 
-from movslam_tpu.core import trajectory as traj
-from movslam_tpu.core.map import Atlas
-from movslam_tpu.core.verbose import Verbose
-from movslam_tpu.io.mvimage import FrameType, MotionVectorImage
-
 from ..config.settings import IMU_MONOCULAR, MONOCULAR, STEREO, Settings
 from ..device import resolve_device
+from ..io.mvimage import FrameType, MotionVectorImage
 from ..ops.frame_step import N_SCALARS, SNAP_CAP, packed_cols, tracked_frame_step, unpack_bits_np
+from . import trajectory as traj
 from .extractor import MAX_COV, MOVExtractor
 from .frame import Frame
 from .local_mapping import LocalMapping
+from .map import Atlas
 from .snapshot import build_snapshot
 from .tracking import State, Tracking
+from .verbose import Verbose
 
 
 class System:

@@ -17,16 +17,15 @@ import time
 import numpy as np
 import torch
 
-from movslam_tpu.core.map import KeyFrame, MapPoint
-from movslam_tpu.core.matcher import (
+from ..ops.ba import ba_solve, build_obs_by_point
+from ..ops.pnp import make_sampler, pnp_ransac_fused
+from ..ops.twoview import reconstruct_two_views
+from .map import KeyFrame, MapPoint
+from .matcher import (
     search_by_video_feature_kf,
     search_by_video_feature_local,
     search_for_initialization,
 )
-
-from ..ops.ba import ba_solve, build_obs_by_point
-from ..ops.pnp import make_sampler, pnp_ransac_fused
-from ..ops.twoview import reconstruct_two_views
 
 
 class State(enum.IntEnum):

@@ -29,9 +29,8 @@ import dataclasses
 
 import numpy as np
 
-from movslam_tpu.io.mvimage import FrameType, MotionVectorImage
-
 from ..core.camera import Pinhole
+from .mvimage import FrameType, MotionVectorImage
 
 MB = 16
 

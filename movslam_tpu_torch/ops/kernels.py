@@ -1,14 +1,22 @@
 """Hand-written CUDA kernels of the port and their plain PyTorch versions.
 
-`score_blocks` replaces the Pallas TPU kernel
+Both replace the Pallas TPU kernel
 movslam_tpu/ops/pallas_kernels.py::score_blocks (see csrc/score_blocks.cu
-for the design). The CUDA source is compiled with nvcc at first use into
+for the design):
+
+  score_blocks      the TPU kernel's own contract: B independent blocks;
+  score_candidates  the per-track scoring step of the MV propagation
+                    (ops/propagate.py): positions, bounds tests, descriptors,
+                    distances and the best-of-4 choice in one launch.
+
+The CUDA source is compiled with nvcc at first use into
 movslam_tpu_torch/_build/ (keyed by a hash of the source) as a shared
 library with a plain C interface and bound with ctypes. Nothing is built or
 imported at module import: the CPU tests import this module without nvcc.
 
-On a CPU tensor the wrapper runs the plain version `score_blocks_ref`; on a
-CUDA tensor it launches the kernel or raises. There is no fallback.
+On a CPU tensor a wrapper runs its plain version; on a CUDA tensor it
+launches the kernel or raises. There is no fallback. Each wrapper counts its
+launches in `<wrapper>.launches`.
 """
 from __future__ import annotations
 
@@ -24,6 +32,7 @@ import torch
 
 from . import express
 from .bitdesc import hamming
+from .mvselect import N_CAND
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
@@ -32,8 +41,19 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC",
 )
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_F = ctypes.c_float
+_SIGNATURES = {
+    # img, H, W, tl, prev, thr, B, dist, desc, stream
+    "score_blocks_launch": [_P, _I, _I, _P, _P, _F, _I, _P, _P, _P],
+    # img, H, W, prev_pt, cand, mv_delta, mv_stride, prev_wh, prev_desc, thr, N,
+    # desc, dist, mv, pt, inb, stream
+    "score_candidates_launch": [_P, _I, _I, _P, _P, _P, _I, _P, _P, _F, _I,
+                                _P, _P, _P, _P, _P, _P],
+}
 
-_lib = None
+_fns = {}  # C entry point name -> bound ctypes function
 
 
 def _find_nvcc():
@@ -48,12 +68,10 @@ def _find_nvcc():
 
 
 def build(verbose=False):
-    """Compile csrc/score_blocks.cu (once per source hash) and load it.
-
-    Returns the ctypes library. Raises with nvcc's output if the build fails."""
-    global _lib
-    if _lib is not None:
-        return _lib
+    """Compile csrc/score_blocks.cu (once per source hash) and bind its
+    entry points. Raises with nvcc's output if the build fails."""
+    if _fns:
+        return _fns
     src = CSRC / "score_blocks.cu"
     digest = hashlib.sha256(
         src.read_bytes() + " ".join(NVCC_FLAGS).encode()
@@ -74,16 +92,54 @@ def build(verbose=False):
             print(proc.stdout + proc.stderr, flush=True)
         os.replace(tmp, so)
     lib = ctypes.CDLL(str(so))
-    fn = lib.score_blocks_launch
-    fn.argtypes = [
-        ctypes.c_void_p, ctypes.c_int, ctypes.c_int,  # img, H, W
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_float,  # tl, prev, thr
-        ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,  # B, dist, desc
-        ctypes.c_void_p,  # stream
-    ]
-    fn.restype = ctypes.c_int
-    _lib = lib
-    return lib
+    for name, argtypes in _SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+        _fns[name] = fn
+    return _fns
+
+
+def _launch(name, dev, *args):
+    """Call a C entry point on `dev`'s current stream; raise on a CUDA error."""
+    fn = _fns.get(name) or build()[name]
+    if dev.index is not None and dev.index != torch.cuda.current_device():
+        with torch.cuda.device(dev):
+            err = fn(*args, torch.cuda.current_stream().cuda_stream)
+    else:
+        err = fn(*args, torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"{name} failed: cudaError {err}")
+
+
+def _check_img(img):
+    if img.dtype != torch.uint8 or img.dim() != 2:
+        raise TypeError(f"img must be (H, W) uint8, got {tuple(img.shape)} {img.dtype}")
+    H, W = img.shape
+    if H < express.BLOCK or W < express.BLOCK:
+        raise ValueError(f"image {H}x{W} smaller than a {express.BLOCK}x{express.BLOCK} block")
+
+
+def _check_typed(name, x, dtype, shape):
+    if x.dtype != dtype or tuple(x.shape) != shape:
+        raise TypeError(f"{name} must be {shape} {dtype}, got {tuple(x.shape)} {x.dtype}")
+
+
+def _common_device(name, *tensors):
+    devs = {x.device for x in tensors}
+    if len(devs) != 1:
+        raise ValueError(f"tensors on different devices: {devs}")
+    dev = devs.pop()
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"{name} runs on cuda or cpu tensors, got {dev}")
+    return dev
+
+
+def _check_card_layout(name, img, *tensors):
+    if not all(x.is_contiguous() for x in (img, *tensors)):
+        raise ValueError(f"{name} needs contiguous tensors")
+    if img.data_ptr() % 4:
+        raise ValueError(f"{name} needs an image that starts on a 4-byte boundary")
 
 
 def score_blocks_ref(img, tl_xy, prev_desc, threshold):
@@ -96,55 +152,123 @@ def score_blocks_ref(img, tl_xy, prev_desc, threshold):
     return hamming(desc, prev_desc), desc
 
 
-def _check(img, tl_xy, prev_desc):
-    if img.dtype != torch.uint8 or img.dim() != 2:
-        raise TypeError(f"img must be (H, W) uint8, got {tuple(img.shape)} {img.dtype}")
-    H, W = img.shape
-    if H < express.BLOCK or W < express.BLOCK:
-        raise ValueError(f"image {H}x{W} smaller than a {express.BLOCK}x{express.BLOCK} block")
-    if tl_xy.dtype != torch.int32 or tl_xy.dim() != 2 or tl_xy.shape[1] != 2:
-        raise TypeError(f"tl_xy must be (B, 2) int32, got {tuple(tl_xy.shape)} {tl_xy.dtype}")
-    B = tl_xy.shape[0]
-    if prev_desc.dtype != torch.int32 or tuple(prev_desc.shape) != (B, 8):
-        raise TypeError(
-            f"prev_desc must be ({B}, 8) int32, got {tuple(prev_desc.shape)} {prev_desc.dtype}"
-        )
-    devs = {img.device, tl_xy.device, prev_desc.device}
-    if len(devs) != 1:
-        raise ValueError(f"tensors on different devices: {devs}")
-    return devs.pop()
-
-
 def score_blocks(img, tl_xy, prev_desc, threshold):
     """Fused gather + EXPRESS descriptor + Hamming for B candidate blocks.
 
+    img (H, W) u8; tl_xy (B, 2) i32 top-left (x, y); prev_desc (B, 8) i32.
     CUDA tensors launch csrc/score_blocks.cu; CPU tensors run
     score_blocks_ref. Any other device, dtype, shape or layout raises.
     Returns (dist (B,) i32, desc (B, 8) i32)."""
-    dev = _check(img, tl_xy, prev_desc)
+    _check_img(img)
+    if tl_xy.dtype != torch.int32 or tl_xy.dim() != 2 or tl_xy.shape[1] != 2:
+        raise TypeError(f"tl_xy must be (B, 2) int32, got {tuple(tl_xy.shape)} {tl_xy.dtype}")
+    B = tl_xy.shape[0]
+    _check_typed("prev_desc", prev_desc, torch.int32, (B, 8))
+    dev = _common_device("score_blocks", img, tl_xy, prev_desc)
     if dev.type == "cpu":
         return score_blocks_ref(img, tl_xy, prev_desc, threshold)
-    if dev.type != "cuda":
-        raise ValueError(f"score_blocks runs on cuda or cpu tensors, got {dev}")
-    if not (img.is_contiguous() and tl_xy.is_contiguous() and prev_desc.is_contiguous()):
-        raise ValueError("score_blocks needs contiguous tensors")
-    lib = build()
+    _check_card_layout("score_blocks", img, tl_xy, prev_desc)
     H, W = img.shape
-    B = tl_xy.shape[0]
-    dist = torch.empty(B, dtype=torch.int32, device=dev)
-    desc = torch.empty((B, 8), dtype=torch.int32, device=dev)
-    if B == 0:
-        return dist, desc
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.score_blocks_launch(
-            img.data_ptr(), H, W, tl_xy.data_ptr(), prev_desc.data_ptr(),
-            float(threshold), B, dist.data_ptr(), desc.data_ptr(), stream,
-        )
-    if err != 0:
-        raise RuntimeError(f"score_blocks launch failed: cudaError {err}")
-    score_blocks.launches += 1
+    out = torch.empty(9 * B, dtype=torch.int32, device=dev)  # one allocation, two planes
+    dist, desc = out[:B], out[B:].view(B, 8)
+    if B:
+        _launch("score_blocks_launch", dev, img.data_ptr(), H, W, tl_xy.data_ptr(),
+                prev_desc.data_ptr(), float(threshold), B, dist.data_ptr(), desc.data_ptr())
+        score_blocks.launches += 1
     return dist, desc
 
 
 score_blocks.launches = 0
+
+
+def _block_inbounds(pt, wh, width, height):
+    """The reference's bounds check: tl >= 0 and tl + wh < dim (strict)."""
+    whi = wh.to(torch.int32)
+    tlx = torch.floor(pt[..., 0]).to(torch.int32) - (wh[..., 0] / 2).to(torch.int32)
+    tly = torch.floor(pt[..., 1]).to(torch.int32) - (wh[..., 1] / 2).to(torch.int32)
+    return (tlx >= 0) & (tly >= 0) & (tlx + whi[..., 0] < width) & (tly + whi[..., 1] < height)
+
+
+def score_candidates_ref(img, prev_pt, cand, mv_delta, prev_wh, prev_desc, threshold,
+                         block_scorer=score_blocks_ref):
+    """Plain PyTorch score_candidates: score each track's 4 MV candidates
+    and choose one (the per-track step of MOVExtractor.cc:264-300).
+
+    A candidate sits at prev_pt + mv_delta[max(cand, 0)]; its block's
+    top-left truncates toward zero. Unusable candidates (none, or out of
+    bounds) never win; slot 0 is kept unless the track has a second
+    candidate and the best usable one scores strictly below 256; ties go to
+    the first. `block_scorer` scores the (N*4) blocks (score_blocks_ref, or
+    the score_blocks kernel to time the unfused composition on the card).
+    Returns (mv (N,) i32 chosen MV index or -1, new_pt (N, 2) f32,
+    dist (N,) i32, desc (N, 8) i32, inb (N,) bool)."""
+    H, W = img.shape
+    N = prev_pt.shape[0]
+    cand_safe = cand.clamp(min=0).to(torch.int64)
+    cand_pt = prev_pt[:, None, :] + mv_delta[cand_safe]  # (N, 4, 2)
+    cand_inb = _block_inbounds(cand_pt, prev_wh[:, None, :], W, H)
+
+    tl = (cand_pt.to(torch.int32).reshape(-1, 2) - express.BLOCK // 2).contiguous()
+    prev_rep = prev_desc.repeat_interleave(N_CAND, dim=0).contiguous()
+    dist_flat, desc_flat = block_scorer(img, tl, prev_rep, threshold)
+    cand_desc = desc_flat.reshape(N, N_CAND, 8)
+    cand_dist = dist_flat.reshape(N, N_CAND)
+
+    usable = (cand >= 0) & cand_inb
+    score = torch.where(usable, cand_dist, torch.full_like(cand_dist, 10_000))
+    best_v, best_j = score.min(dim=1)
+    multi = cand[:, 1] >= 0
+    chosen_j = torch.where(multi & (best_v < 256), best_j, torch.zeros_like(best_j))
+
+    rows = torch.arange(N, device=prev_pt.device)
+    return (cand[rows, chosen_j], cand_pt[rows, chosen_j], cand_dist[rows, chosen_j],
+            cand_desc[rows, chosen_j], cand_inb[rows, chosen_j])
+
+
+def score_candidates(img, prev_pt, cand, mv_delta, prev_wh, prev_desc, threshold):
+    """Fused per-track candidate scorer: for each of N tracks, its 4 MV
+    candidates' positions, bounds tests, descriptors and Hamming distances
+    to prev_desc, and the best-of-4 choice (score_candidates_ref).
+
+    img (H, W) u8; prev_pt (N, 2) f32; cand (N, 4) i32 MV indices or -1;
+    mv_delta (M, 2) f32 (its rows may be strided, e.g. a column slice of the
+    packed MV table); prev_wh (N, 2) f32; prev_desc (N, 8) i32.
+    CUDA tensors launch csrc/score_blocks.cu; CPU tensors run
+    score_candidates_ref. Any other device, dtype, shape or layout raises.
+    Returns (mv, new_pt, dist, desc, inb) as score_candidates_ref does."""
+    _check_img(img)
+    if cand.dtype != torch.int32 or cand.dim() != 2 or cand.shape[1] != N_CAND:
+        raise TypeError(f"cand must be (N, {N_CAND}) int32, got {tuple(cand.shape)} {cand.dtype}")
+    N = cand.shape[0]
+    _check_typed("prev_pt", prev_pt, torch.float32, (N, 2))
+    _check_typed("prev_wh", prev_wh, torch.float32, (N, 2))
+    _check_typed("prev_desc", prev_desc, torch.int32, (N, 8))
+    if mv_delta.dtype != torch.float32 or mv_delta.dim() != 2 or mv_delta.shape[1] != 2:
+        raise TypeError(f"mv_delta must be (M, 2) float32, got {tuple(mv_delta.shape)} {mv_delta.dtype}")
+    if N and mv_delta.shape[0] == 0:
+        raise ValueError("mv_delta needs at least one row: a track without a candidate scores row 0")
+    dev = _common_device("score_candidates", img, prev_pt, cand, mv_delta, prev_wh, prev_desc)
+    if dev.type == "cpu":
+        return score_candidates_ref(img, prev_pt, cand, mv_delta, prev_wh, prev_desc, threshold)
+    _check_card_layout("score_candidates", img, prev_pt, cand, prev_wh, prev_desc)
+    if mv_delta.stride(1) != 1:
+        raise ValueError("score_candidates needs mv_delta's two columns side by side")
+    H, W = img.shape
+    # One allocation, five planes: desc (8N), dist (N), mv (N), new_pt (2N
+    # floats), inb (N bools in ceil(N/4) words).
+    out = torch.empty(12 * N + (N + 3) // 4, dtype=torch.int32, device=dev)
+    desc = out[: 8 * N].view(N, 8)
+    dist = out[8 * N: 9 * N]
+    mv = out[9 * N: 10 * N]
+    new_pt = out[10 * N: 12 * N].view(torch.float32).view(N, 2)
+    inb = out[12 * N:].view(torch.bool)[:N]
+    if N:
+        _launch("score_candidates_launch", dev, img.data_ptr(), H, W, prev_pt.data_ptr(),
+                cand.data_ptr(), mv_delta.data_ptr(), mv_delta.stride(0), prev_wh.data_ptr(),
+                prev_desc.data_ptr(), float(threshold), N, desc.data_ptr(), dist.data_ptr(),
+                mv.data_ptr(), new_pt.data_ptr(), inb.data_ptr())
+        score_candidates.launches += 1
+    return mv, new_pt, dist, desc, inb
+
+
+score_candidates.launches = 0

@@ -5,8 +5,9 @@ MOVExtractor, MOVExtractor.cc:245-451): every (track, candidate) pair is
 scored in parallel and the order-dependent destination-block claim is a
 scatter-min over priority ranks (`scatter_reduce(..., "amin")`).
 
-Candidate scoring always goes through kernels.score_blocks: the CUDA kernel
-on the card, its plain version on the CPU. There is no switch.
+Each track's candidates are scored and chosen by kernels.score_candidates:
+one CUDA kernel launch on the card, its plain version on the CPU. There is
+no switch.
 """
 from __future__ import annotations
 
@@ -14,8 +15,8 @@ import torch
 
 from . import express
 from .bitdesc import popcount
-from .kernels import score_blocks
-from .mvselect import N_CAND, candidate_mvs
+from .kernels import score_candidates
+from .mvselect import candidate_mvs
 
 ACCEPT_HAMMING = 40  # MOVExtractor.cc:316
 MIN_SEED_COUNT = 60  # MOVExtractor.cc:418 fallback gate
@@ -33,14 +34,6 @@ def priority_rank(valid, age, desc):
     return rank.to(torch.int32)
 
 
-def _block_inbounds(pt, wh, width, height):
-    """Reference bounds check: tl >= 0 and tl + wh < dim (strict)."""
-    whi = wh.to(torch.int32)
-    tlx = torch.floor(pt[..., 0]).to(torch.int32) - (wh[..., 0] / 2).to(torch.int32)
-    tly = torch.floor(pt[..., 1]).to(torch.int32) - (wh[..., 1] / 2).to(torch.int32)
-    return (tlx >= 0) & (tly >= 0) & (tlx + whi[..., 0] < width) & (tly + whi[..., 1] < height)
-
-
 def propagate_mv_tracks(
     img, prev_pt, prev_valid, prev_coverage, prev_age, prev_desc, prev_wh,
     mv_delta, mv_rect, mv_dindx, mv_valid, n_kps_capacity, threshold,
@@ -49,38 +42,13 @@ def propagate_mv_tracks(
 
     Returns dict: new_pt (N,2), accepted (N,) bool, new_desc (N,8) i32,
     dist (N,) i32, kp_claimed (K,) bool (lbFound, for seed suppression)."""
-    H, W = img.shape
-    N = prev_pt.shape[0]
     dev = prev_pt.device
 
     mv_track = prev_valid & ~prev_coverage
     cand = candidate_mvs(prev_pt, mv_track, mv_rect, mv_valid)  # (N, 4)
     has_cand = cand[:, 0] >= 0
-    multi = cand[:, 1] >= 0
-
-    cand_safe = cand.clamp(min=0).to(torch.int64)
-    cand_pt = prev_pt[:, None, :] + mv_delta[cand_safe]  # (N, 4, 2)
-    cand_inb = _block_inbounds(cand_pt, prev_wh[:, None, :], W, H)
-
-    tl = (cand_pt.to(torch.int32).reshape(-1, 2) - express.BLOCK // 2).contiguous()
-    prev_rep = prev_desc.repeat_interleave(N_CAND, dim=0).contiguous()
-    dist_flat, desc_flat = score_blocks(img, tl, prev_rep, threshold)
-    cand_desc = desc_flat.reshape(N, N_CAND, 8)
-    cand_dist = dist_flat.reshape(N, N_CAND)
-
-    # Unusable candidates never win; slot 0 is kept unless a usable one
-    # scores strictly below 256 (single-candidate tracks skip the tournament).
-    usable = (cand >= 0) & cand_inb
-    score = torch.where(usable, cand_dist, torch.full_like(cand_dist, 10_000))
-    best_v, best_j = score.min(dim=1)
-    chosen_j = torch.where(multi & (best_v < 256), best_j, torch.zeros_like(best_j))
-
-    rows = torch.arange(N, device=dev)
-    chosen = cand[rows, chosen_j]
-    new_pt = cand_pt[rows, chosen_j]
-    new_desc = cand_desc[rows, chosen_j]
-    dist = cand_dist[rows, chosen_j]
-    inb = cand_inb[rows, chosen_j]
+    chosen, new_pt, dist, new_desc, inb = score_candidates(
+        img, prev_pt, cand, mv_delta, prev_wh, prev_desc, threshold)
     dindx = torch.where(has_cand, mv_dindx[chosen.clamp(min=0).to(torch.int64)],
                         torch.full_like(chosen, -1))
 

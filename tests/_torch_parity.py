@@ -103,6 +103,54 @@ def synthetic_pframe(capacity=512, n_mvs=1024, n_kps=512, H=240, W=320, seed=0):
     }
 
 
+def candidate_case(seed, H=240, W=320, N=256, M=512, threshold=25.0):
+    """numpy inputs of kernels.score_candidates that reach every case of its
+    choice rule: rows without a candidate, with 1-4 candidates, tracks
+    within 8 px of the borders (some just outside, where truncation and floor
+    differ), ties between two slots holding the same MV, near-matching
+    previous descriptors, and rows whose every candidate scores exactly 256.
+    Returns dict(img, prev_pt, cand, mv_delta, prev_wh, prev_desc)."""
+    from movslam_tpu_torch.ops.kernels import score_blocks_ref
+
+    rng = np.random.default_rng(seed)
+    img = rng.integers(0, 256, (H, W)).astype(np.uint8)
+    pt = np.stack([rng.uniform(0, W, N), rng.uniform(0, H, N)], -1)
+    off = rng.uniform(-2.0, 8.0, N)
+    side = np.where(rng.uniform(size=N) < 0.5, rng.integers(0, 4, N), -1)
+    pt[side == 0, 0] = off[side == 0]
+    pt[side == 1, 0] = W - off[side == 1]
+    pt[side == 2, 1] = off[side == 2]
+    pt[side == 3, 1] = H - off[side == 3]
+    pt = pt.astype(np.float32)
+    mv_delta = rng.normal(0, 3, (max(M, 1), 2)).astype(np.float32)[:M]
+    k = rng.integers(0, 5, N)
+    cand = rng.integers(0, max(M, 1), (N, 4)).astype(np.int32)
+    cand[np.arange(4)[None, :] >= k[:, None]] = -1
+    tie = (k >= 2) & (rng.uniform(size=N) < 0.2)
+    cand[tie, 1] = cand[tie, 0]
+    flat = (k >= 2) & (rng.uniform(size=N) < 0.08)  # every slot the same MV
+    cand[flat] = cand[flat, :1]
+    wh = np.full((N, 2), 16.0, np.float32)
+    wh[rng.uniform(size=N) < 0.15] = 8.0
+    wh[rng.uniform(size=N) < 0.1] = 32.0
+
+    # Each slot's descriptor, to make near matches and exact-256 rows.
+    cand_pt = pt[:, None, :] + mv_delta[np.maximum(cand, 0)] if M else np.zeros((N, 4, 2), np.float32)
+    tl = cand_pt.astype(np.int32).reshape(-1, 2) - 8
+    zeros = np.zeros((4 * N, 8), np.int32)
+    _, desc = score_blocks_ref(torch.from_numpy(img), torch.from_numpy(tl), torch.from_numpy(zeros),
+                               threshold)
+    desc = desc.numpy().view(np.uint32).reshape(N, 4, 8)
+    prev = rng.integers(0, 2**32, (N, 8), dtype=np.uint32)
+    near = (k >= 1) & ~flat & (rng.uniform(size=N) < 0.3)
+    j = rng.integers(0, np.maximum(k, 1))
+    flips = np.where(rng.uniform(size=(N, 8)) < 0.05, np.uint32(1) << rng.integers(0, 32, (N, 8)).astype(np.uint32), 0)
+    prev[near] = desc[near, j[near]] ^ flips[near].astype(np.uint32)
+    prev[flat] = ~desc[flat, 0]
+    return {"img": img, "prev_pt": pt, "cand": cand, "mv_delta": mv_delta, "prev_wh": wh,
+            "prev_desc": prev.view(np.int32)}
+
+
 def replay_jax_draws(keys, split=True):
     """A port sampler that replays the reference's RANSAC draws.
 

@@ -83,7 +83,7 @@ def test_extractor_on_stream_exact():
     every frame, so each step is compared on its own."""
     stream = _small_stream(5, keyint=3)
     jx = jext.MOVExtractor(threshold=25, capacity=512)
-    px = extractor.MOVExtractor(threshold=25, capacity=512)
+    px = extractor.MOVExtractor(threshold=25, capacity=512, device="cpu")
     j_prev, p_prev, prev_img = None, None, None
     for k in range(5):
         smv = stream.frame(k)
@@ -112,7 +112,7 @@ def test_relocalize_merge_exact():
     jx = jext.MOVExtractor(threshold=25, capacity=512)
     jx.extract(f0, None, None)
     want = jx.extract(f1, j0, f0.im_gray, reloc=reloc)
-    px = extractor.MOVExtractor(threshold=25, capacity=512)
+    px = extractor.MOVExtractor(threshold=25, capacity=512, device="cpu")
     got = px.extract(f1, TrackState.from_numpy(jax_state_arrays(j0)), t(f0.im_gray), reloc=reloc)
     # Relocalized rows are LK-tracked: they lead the merged state.
     lk_rows = np.isin(np.asarray(want.track_id), ids[:60]) | np.asarray(want.coverage)

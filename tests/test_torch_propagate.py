@@ -10,11 +10,29 @@ from movslam_tpu_torch.ops import mvselect, propagate
 from tests._torch_parity import assert_exact, synthetic_pframe, t, u32
 
 pytestmark = pytest.mark.smoke
+BORDER_SEEDS = (3, 4, 5)  # every track within 8 px of a border
 
 
-def _inputs(seed):
+def _inputs(seed, border=False):
     d = synthetic_pframe(seed=seed)
     st = d["state"]
+    if border:
+        # Every track within 8 px of a border, some just outside it (where
+        # truncation and floor differ), and MV rects reaching the edges.
+        rng = np.random.default_rng(100 + seed)
+        H, W = d["img"].shape
+        n = len(st["pt"])
+        off = rng.uniform(-1.5, 8.0, n).astype(np.float32)
+        side = rng.integers(0, 4, n)
+        pt = st["pt"]
+        pt[side == 0, 0] = off[side == 0]
+        pt[side == 1, 0] = W - 1 - off[side == 1]
+        pt[side == 2, 1] = off[side == 2]
+        pt[side == 3, 1] = H - 1 - off[side == 3]
+        x0 = np.clip(pt[:, 0] - rng.uniform(0, 16, n), 0, W - 17)[: len(d["mv_rect"])]
+        y0 = np.clip(pt[:, 1] - rng.uniform(0, 16, n), 0, H - 17)[: len(d["mv_rect"])]
+        m = len(x0)
+        d["mv_rect"][:m] = np.stack([x0, y0, x0 + 16, y0 + 16], -1)
     # Descriptors taken from the previous image at each track, so that some
     # candidates pass the Hamming gate and the claim logic is exercised.
     tl = st["pt"].astype(np.int32) - 8
@@ -49,9 +67,9 @@ def test_priority_rank_exact_with_ties(rng):
     assert_exact(got, np.asarray(want))
 
 
-@pytest.mark.parametrize("seed", [0, 1, 2])
+@pytest.mark.parametrize("seed", [0, 1, 2, *BORDER_SEEDS])
 def test_propagate_and_seed_exact(seed):
-    d = _inputs(seed)
+    d = _inputs(seed, border=seed in BORDER_SEEDS)
     st = d["state"]
     H, W = d["img"].shape
     args = [
@@ -76,3 +94,4 @@ def test_propagate_and_seed_exact(seed):
     )
     for g, w, name in zip(s_got, s_want, ("pt", "desc", "accept", "seed_order")):
         assert_exact(u32(g) if name == "desc" else g, np.asarray(w), name)
+

@@ -4,8 +4,9 @@
 (b) the port against the JAX drive on the same stream, at trajectory level
     (their RANSAC generators differ, so frame-level poses are not compared);
 (d) the port's synthetic stream renders the reference's frames;
-(e) the port imports and runs with jax, flax, yaml and cv2 blocked — the
-    machine with the card has none of them;
+(e) the port imports and runs with jax, flax, yaml, cv2 and the JAX
+    package blocked — the machine with the card has none of the first four,
+    and the port keeps its own copies of what it needs from the fifth;
 plus the explicit-device rule. ((c), TrackState.from_numpy on a JAX state,
 is in tests/test_torch_extractor.py.)"""
 import os
@@ -123,7 +124,7 @@ def test_stream_renders_reference_frames():
 def test_runs_with_jax_flax_yaml_cv2_blocked(tmp_path):
     code = textwrap.dedent("""
         import sys
-        for name in ("jax", "flax", "yaml", "cv2"):
+        for name in ("jax", "flax", "yaml", "cv2", "movslam_tpu"):
             sys.modules[name] = None
         import torch
         torch.set_num_threads(2)
@@ -140,7 +141,8 @@ def test_runs_with_jax_flax_yaml_cv2_blocked(tmp_path):
             system.track_monocular(smv.timestamp, smv)
         system.shutdown()
         assert system.tracking.state.name == "OK", system.tracking.state
-        loaded = [m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "flax", "yaml", "cv2")]
+        blocked = ("jax", "jaxlib", "flax", "yaml", "cv2", "movslam_tpu")
+        loaded = [m for m in sys.modules if m.split(".")[0] in blocked]
         assert all(sys.modules[m] is None for m in loaded), loaded
         print("slice ran without jax")
     """)
