@@ -23,6 +23,19 @@ Phases (any failure exits nonzero and prints no result line):
                30-39: as it is, and with the scoring step put back to the
                unfused composition (the score_blocks kernel inside
                score_candidates_ref), counting CUDA launches per frame.
+  5. windows : the windowed drive on the card at full width (640x480,
+               2048 tracks, 4096 MVs, SNAP_CAP 4096, mapper class 32/1024/4096,
+               W=8, pipeline_depth=2) over SyntheticStream(n_points=400,
+               seed=42): 48 warm-up frames, then 96 timed ones fed to
+               System.track_monocular_batch in batches of 8 with flush=False
+               and one final flush=True; 16 more frames under torch.profiler
+               for the launches per frame inside a window; and a per-frame
+               drive of the same frames for comparison. Gates: 0 lost, every
+               frame counted and answered, >= 5 keyframes, > 100 map points,
+               the ATE bounds of phase 3, at least one speculative window and
+               one mapper job committed from a window's wire, and
+               score_candidates launched once for every P-frame the system
+               says it dispatched (re-dispatches after rewinds included).
 Before the last line it prints the card's name and power limit and one JSON
 line describing each kernel; the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -31,6 +44,7 @@ this script checks that none of them was loaded.
 """
 from __future__ import annotations
 
+import collections
 import functools
 import json
 import os
@@ -41,6 +55,9 @@ import time
 HERE = os.path.dirname(os.path.abspath(__file__))
 N_FRAMES = 40
 PROFILED = range(30, 40)
+W_WARM, W_TIMED, W_PROFILED, W_BATCH = 48, 96, 16, 8  # phase 5, in frames
+PROF_STAGES = ("disp_pack_host", "disp_upload", "disp_commit_snap", "disp_jit_call", "disp_tail",
+               "rep_wire_pull", "rep_pre", "rep_track_fused")
 GRAPH_LAUNCHES = 200
 THR = 25.0
 # Post-hoc ATE bound. tests/test_pipeline.py asks < 0.02 m of the reference
@@ -251,6 +268,126 @@ def launch_counts(prof, n_frames):
             busy_us += _device_us(e)
     return host_launches / n_frames, device_kernels / n_frames, busy_us / 1e3 / n_frames
 
+def windowed_phase(System, settings, monocular, SyntheticStream, kernels, card):
+    """Phase 5 (see the module docstring). Returns the numbers it printed."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    n_fed = W_WARM + W_TIMED + W_PROFILED
+    stream = SyntheticStream(n_points=400, seed=42)
+    items = [(f.timestamp, f) for f in (stream.frame(k) for k in range(n_fed))]  # rendering is set-up
+    gt = lambda k: -(stream.gt_pose(k)[0].T @ stream.gt_pose(k)[1])  # noqa: E731
+
+    kernels.score_blocks.launches = kernels.score_candidates.launches = 0
+    system = System(settings, monocular, device="cuda")
+    system._prof = collections.defaultdict(float)
+    poses = []
+    for k in range(0, W_WARM, W_BATCH):  # the last warm-up batch drains the pipeline
+        poses += system.track_monocular_batch(items[k:k + W_BATCH], flush=k + W_BATCH >= W_WARM)
+    torch.cuda.synchronize()
+    warm_counts, warm_prof = collections.Counter(system.counts), dict(system._prof)
+    warm_jobs = (system.mapper.n_fused_jobs, system.mapper.n_standalone_jobs)
+    t0 = time.perf_counter()
+    for k in range(W_WARM, W_WARM + W_TIMED, W_BATCH):
+        poses += system.track_monocular_batch(items[k:k + W_BATCH], flush=False)
+    poses += system.track_monocular_batch([], flush=True)
+    torch.cuda.synchronize()
+    win_ms = 1e3 * (time.perf_counter() - t0) / W_TIMED
+    timed = collections.Counter(system.counts)
+    timed.subtract(warm_counts)
+    prof_s = {k: system._prof[k] - warm_prof.get(k, 0.0) for k in PROF_STAGES}
+    jobs = (system.mapper.n_fused_jobs - warm_jobs[0], system.mapper.n_standalone_jobs - warm_jobs[1])
+
+    # Launches per frame inside windows: the next frames under the profiler.
+    before = collections.Counter(system.counts)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for k in range(W_WARM + W_TIMED, n_fed, W_BATCH):
+            poses += system.track_monocular_batch(items[k:k + W_BATCH], flush=False)
+        poses += system.track_monocular_batch([], flush=True)
+        torch.cuda.synchronize()
+        prof_wall_ms = 1e3 * (time.perf_counter() - t0) / W_PROFILED
+    profiled = collections.Counter(system.counts)
+    profiled.subtract(before)
+    host, devk, busy = launch_counts(prof, W_PROFILED)
+    launches = {"score_candidates": kernels.score_candidates.launches,
+                "score_blocks": kernels.score_blocks.launches}
+    system.shutdown()
+    torch.cuda.synchronize()
+
+    m = system.atlas.current
+    est = {k: -(p[0].T @ p[1]) for k, p in enumerate(poses) if p is not None}
+    ate_live = umeyama_ate([gt(k) for k in est], list(est.values()))
+    traj = system.frame_trajectory()
+    ate_post = umeyama_ate([gt(round(ts * 30.0)) for ts, _, _, _ in traj],
+                           [-(R.T @ t) for _, R, t, _ in traj])
+    c = system.counts
+    by_len = {int(k.rsplit("_", 1)[1]): v for k, v in sorted(timed.items()) if k.startswith("windows_len_") and v}
+    dispatched = c["window_frames"] + c["per_frame_p"]
+
+    # The same frames through the per-frame drive, in the same call.
+    psys = System(settings, monocular, device="cuda")
+    for k, (ts, smv) in enumerate(items[:W_WARM + W_TIMED]):
+        if k == W_WARM:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+        psys.track_monocular(ts, smv)
+    torch.cuda.synchronize()
+    pf_ms = 1e3 * (time.perf_counter() - t0) / W_TIMED
+    pf_lost = psys.get_total_lost()
+    psys.shutdown()
+    torch.cuda.synchronize()
+
+    print(f"windows: windowed drive {win_ms:.2f} ms/frame ({1e3 / win_ms:.2f} frames/s) over the "
+          f"{W_TIMED} timed frames (W={system.window}, depth {system.pipeline_depth}, batches of "
+          f"{W_BATCH}, flush=False) on {card}", flush=True)
+    print(f"windows: per-frame drive of the same frames {pf_ms:.2f} ms/frame ({1e3 / pf_ms:.2f} "
+          f"frames/s), lost {pf_lost}, in the same call on {card}", flush=True)
+    print(f"windows: timed windows by length {by_len}, {timed['window_frames']} window frames, "
+          f"{timed['per_frame_p']} per-frame P-frames, {timed['spec_windows']} speculative windows, "
+          f"{timed['rewinds']} rewinds ({100.0 * timed['rewinds'] / W_TIMED:.2f} per 100 frames) on {card}",
+          flush=True)
+    print(f"windows: timed mapper jobs: {jobs[0]} run by a window and committed from its wire, "
+          f"{jobs[1]} standalone; whole drive {system.mapper.n_fused_jobs} / "
+          f"{system.mapper.n_standalone_jobs} on {card}", flush=True)
+    print("windows: host seconds by stage over the timed frames: "
+          + ", ".join(f"{k} {prof_s[k]:.3f}" for k in PROF_STAGES) + f" on {card}", flush=True)
+    print(f"windows: {W_PROFILED} more frames under the profiler ({profiled['window_frames']} window "
+          f"frames, {profiled['per_frame_p']} per-frame): {host:.1f} launch calls/frame, {devk:.1f} "
+          f"device kernels/frame, device busy {busy:.2f} ms of {prof_wall_ms:.2f} ms/frame with the "
+          f"profiler on (idle {1 - busy / prof_wall_ms:.3f}; {1 - busy / win_ms:.3f} against the "
+          f"unprofiled {win_ms:.2f} ms) on {card}", flush=True)
+    print(f"windows: state {system.tracking.state.name}, {m.n_keyframes()} keyframes, "
+          f"{m.n_mappoints()} map points, {len(poses)} poses ({len(est)} set), lost "
+          f"{system.get_total_lost()}, live ATE {ate_live:.4f} m, post-hoc ATE {ate_post:.4f} m; "
+          f"score_candidates launches {launches['score_candidates']} for {dispatched} P-frames "
+          f"dispatched ({c['window_frames']} in windows, {c['per_frame_p']} per frame)", flush=True)
+    checks = {
+        "0 lost": system.get_total_lost() == 0,
+        "every frame counted": system.image_count == n_fed,
+        "one pose per frame": len(poses) == n_fed and all(p is not None for p in poses[W_WARM:]),
+        ">= 5 keyframes": m.n_keyframes() >= 5,
+        "> 100 map points": m.n_mappoints() > 100,
+        f"live ATE < {LIVE_ATE_MAX}": ate_live < LIVE_ATE_MAX,
+        f"post-hoc ATE < {POSTHOC_ATE_MAX}": ate_post < POSTHOC_ATE_MAX,
+        "a speculative window": c["spec_windows"] >= 1,
+        "a mapper job committed from a window's wire": system.mapper.n_fused_jobs >= 1,
+        "score_candidates once per dispatched P-frame": launches["score_candidates"] == dispatched,
+    }
+    bad = [name for name, ok in checks.items() if not ok]
+    if bad:
+        fail(f"windowed drive gates failed: {bad}")
+    return {
+        "ms_per_frame": win_ms, "per_frame_drive_ms_per_frame": pf_ms, "per_frame_drive_lost": pf_lost,
+        "windows_by_length": by_len,
+        "window_frames": timed["window_frames"], "per_frame_p": timed["per_frame_p"],
+        "speculative_windows": timed["spec_windows"], "rewinds": timed["rewinds"],
+        "mapper_jobs_fused": jobs[0], "mapper_jobs_standalone": jobs[1], "prof_seconds": prof_s,
+        "profiled": {"host_launches": host, "device_kernels": devk, "busy_ms": busy, "wall_ms": prof_wall_ms},
+        "ate_live": ate_live, "ate_post": ate_post, "keyframes": m.n_keyframes(),
+        "launches": launches, "p_frames_dispatched": dispatched,
+    }
+
 
 def main():
     try:
@@ -286,6 +423,12 @@ def main():
     print(f"card: {card}", flush=True)
     print(f"torch {torch.__version__} cuda {torch.version.cuda} device {torch.cuda.get_device_name(0)}", flush=True)
     dev = torch.device("cuda")
+    t_phase = [time.perf_counter()]
+
+    def phase_done(name):
+        now = time.perf_counter()
+        print(f"{name}: phase took {now - t_phase[0]:.1f} s", flush=True)
+        t_phase[0] = now
 
     # --- 1. build ---------------------------------------------------------
     t0 = time.perf_counter()
@@ -363,6 +506,8 @@ def main():
               f"plain {us['plain_ms']:.2f} us/call (device {us['plain_device_ms']:.2f} us), "
               f"bound {us['bound_ms']:.4f} us ({t['bound_by']}, {nbytes} B) on {card}", flush=True)
 
+    phase_done("kernels")
+
     # --- 3. the per-frame monocular drive on the card -----------------------
     s = Settings()
     s.camera1 = Pinhole(320.0, 320.0, 320.0, 240.0, 640, 480)
@@ -404,6 +549,8 @@ def main():
     if bad:
         fail(f"drive gates failed: {bad}")
 
+    phase_done("drive")
+
     # --- 4. launches per frame, fused scoring vs the unfused composition ------
     unfused = functools.partial(kernels.score_candidates_ref, block_scorer=kernels.score_blocks)
     per_frame = {}
@@ -439,26 +586,33 @@ def main():
           f"({d_dev:.1f} device kernels/frame)", flush=True)
     if per_frame["unfused"]["score_blocks"] == 0:
         fail("the unfused composition never launched score_blocks")
+    phase_done("launches")
+
+    # --- 5. the windowed drive on the card -------------------------------------
+    win = windowed_phase(System, s, MONOCULAR, SyntheticStream, kernels, card)
+    phase_done("windows")
     check_banned()
 
     src = "movslam_tpu_torch/csrc/score_blocks.cu"
     replaces = "movslam_tpu/ops/pallas_kernels.py:129"
     rows = []
     for name, launched, path in (
-        ("score_candidates", launches["score_candidates"], "per-frame drive (phase 3)"),
+        ("score_candidates", launches["score_candidates"],
+         "per-frame drive (phase 3); launches_windowed: windowed drive (phase 5)"),
         ("score_blocks", per_frame["unfused"]["score_blocks"],
          "per-frame drive with unfused scoring (phase 4)"),
     ):
         t = times[name]
         rows.append({
             "name": name, "route": "cuda", "source": src, "replaces": replaces,
-            "launches": launched, "path": path,
+            "launches": launched, "launches_windowed": win["launches"][name], "path": path,
             "max_abs_err": cand_err if name == "score_candidates" else blocks_err,
             "ms": t["ms"], "wrapper_ms": t["wrapper_ms"], "profiler_ms": t["profiler_ms"],
             "plain_ms": t["plain_ms"], "plain_device_ms": t["plain_device_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"], "library_ms": None,
         })
     print(json.dumps({"launches_per_frame": per_frame, "card": card}), flush=True)
+    print(json.dumps({"windowed_drive": win, "card": card}), flush=True)
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),

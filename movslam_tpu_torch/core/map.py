@@ -183,12 +183,31 @@ def update_normals_batch(mps, mp_map):
 
 class KeyFrame:
     __slots__ = (
-        "id", "frame_id", "timestamp", "R", "t", "track_ids", "pts",
+        "id", "frame_id", "timestamp", "R", "t", "track_ids", "pts", "_desc", "_desc_thunk",
         "mp_ids", "image", "covis", "parent", "children", "bad",
         "map_id", "prev_kf", "next_kf", "Tcp",
     )
 
     _next_id = itertools.count()
+
+    # Descriptor archive. The windowed drive archives lazily: a thunk that
+    # pulls the keyframe's rows of the window's device-resident descriptor
+    # stack on first access, so a keyframe never blocks the replay on a pull.
+    @property
+    def desc(self):
+        if self._desc is None and self._desc_thunk is not None:
+            self._desc = self._desc_thunk()
+            self._desc_thunk = None
+        return self._desc
+
+    @desc.setter
+    def desc(self, v):
+        self._desc = v
+        self._desc_thunk = None
+
+    def set_desc_thunk(self, fn):
+        self._desc = None
+        self._desc_thunk = fn
 
     def __init__(self, frame, map_id=0):
         """Build from a tracked Frame (core.frame.Frame)."""
@@ -199,6 +218,7 @@ class KeyFrame:
         self.t = frame.t.copy()
         self.track_ids = frame.track_ids.copy()
         self.pts = frame.pts.copy()
+        self.desc = frame.desc.copy() if frame.desc is not None else None
         self.mp_ids = np.full(len(frame.track_ids), -1, np.int64)
         for slot, mp in enumerate(frame.mappoints):
             if mp is not None and not mp.bad:

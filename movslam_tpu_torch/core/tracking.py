@@ -6,8 +6,10 @@ initialization, reference-KF tracking, local-map tracking, keyframe
 decisions and loss handling. Pose estimation runs the batched PnP of
 ops/pnp.py on the system's device; matching is the reference's host-only
 track-id join (movslam_tpu/core/matcher.py). RANSAC draws come from one
-torch.Generator seeded like the reference's PRNGKey(7). Stereo
-initialization and localization-only mode are not part of this slice.
+torch.Generator seeded like the reference's PRNGKey(7). Both drives end in
+`track_fused`: the per-frame program's result, or one frame of a replayed
+window. Stereo initialization and localization-only mode are not part of
+this slice.
 """
 from __future__ import annotations
 
@@ -53,6 +55,9 @@ class Tracking:
         self.last_ref_track_count = 0
         self.max_frames = int(settings.fps / 2)
         self.min_frames = 0
+        # Localization mode (System.h:118-121) is ROADMAP Queue 1 work; the
+        # windowed drive's scheduler already reads the flag.
+        self.only_tracking = False
 
         self.current = None
         self.last_frame = None
@@ -633,3 +638,4 @@ class Tracking:
         self.last_frame = None
         self.mapper.recent_points = []
         self.mapper.queue.clear()
+        self.mapper.drop_jobs()

@@ -40,7 +40,7 @@ class TrackState:
         return self.pt.device
 
     @staticmethod
-    def empty(capacity=MAX_TRACKS, next_id=0, device="cpu"):
+    def empty(capacity=MAX_TRACKS, next_id=0, *, device):
         z = dict(device=device)
         return TrackState(
             pt=torch.zeros((capacity, 2), dtype=torch.float32, **z),
@@ -54,7 +54,7 @@ class TrackState:
         )
 
     @staticmethod
-    def from_numpy(arrays, device="cpu"):
+    def from_numpy(arrays, *, device):
         """Build from numpy arrays keyed by field name — e.g. a JAX
         TrackState's leaves pulled to the host. Descriptors may be uint32 or
         int32; they are reinterpreted bit for bit."""
@@ -71,6 +71,33 @@ class TrackState:
             coverage=t("coverage", bool),
             valid=t("valid", bool),
             next_id=torch.tensor(int(np.asarray(arrays["next_id"])), dtype=torch.int32, device=device),
+        )
+
+    @staticmethod
+    def rebuild(packed, desc, next_id):
+        """Rebuild a TrackState on the device of `packed` from one frame's
+        packed export (ops/frame_step words: pt 2 x i16 | track id | meta)
+        and its descriptor row (the window program's desc_w side channel):
+        the rewind to a mid-window frame, without a host round trip. mb_wh is
+        not exported, so the 16x16 default comes back; pt carries the wire's
+        1/32-px quantisation."""
+        from ..ops.frame_step import unpack_pt_dev
+
+        dev = packed.device
+        meta = packed[:, 2]
+        flags = (meta >> 25) & 0xF
+        valid = (flags & 4) != 0
+        tid = packed[:, 1]
+        N = packed.shape[0]
+        return TrackState(
+            pt=unpack_pt_dev(packed[:, 0]),
+            track_id=torch.where(valid, tid, torch.full_like(tid, -1)),
+            age=meta & 0xFFF,
+            desc=desc,
+            mb_wh=torch.full((N, 2), 16.0, dtype=torch.float32, device=dev),
+            coverage=(flags & 8) != 0,
+            valid=valid,
+            next_id=torch.as_tensor(next_id, dtype=torch.int32, device=dev),
         )
 
     def to_numpy(self):

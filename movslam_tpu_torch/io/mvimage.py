@@ -118,3 +118,28 @@ class MotionVectorImage:
         joint[:M] = mv_pack
         joint[M:, 0:5] = kps_pack
         return joint, M
+
+    def packed_joint_i16(self):
+        """Half-width upload for the windowed drive: (M+K+1, 8) i16 with the
+        row layout of packed_joint plus ONE trailer row. Block rects can be
+        fractional (quarter-pel-shifted source rects, synthetic continuous
+        flow): they are ROUNDED to the nearest pixel before the i16 cast
+        (truncation would shift inclusive rect bounds by up to ~1 px);
+        dindx/valid are small integers, exact in i16. The per-hop delta is
+        stored in 1/64-pel fixed point (the decoder emits motion/4/(ref+1),
+        so ref in {0, 1, 3} is exact and other refs round at ~0.008 px). The
+        trailer row carries coverage_area in Q14. Returns (arr_i16, M)."""
+        M = self.mv_delta.shape[0]
+        K = self.kps_rect.shape[0]
+        joint = np.zeros((M + K + 1, 8), np.int16)
+        np.clip(
+            np.round(self.mv_delta * 64.0), -32767, 32767,
+            out=joint[:M, 0:2], casting="unsafe",
+        )
+        joint[:M, 2:6] = np.round(self.mv_rect)
+        joint[:M, 6] = self.mv_dindx
+        joint[: self.n_mvs, 7] = 1
+        joint[M : M + K, 0:4] = np.round(self.kps_rect)
+        joint[M : M + self.n_kps, 4] = 1
+        joint[M + K, 0] = int(round(self.coverage_area * 16384.0))
+        return joint, M

@@ -143,34 +143,44 @@ def ba_solve(kf_R, kf_t, kf_fixed, kf_valid, mp_pos, mp_valid, obs_kf, obs_mp, o
             "cost": lin["cost"]}
 
 
+def ba_solve_packed(kf_pack, mp_pack, obs_pack, obs_by_point, intr, bf, iters=LM_ITERS):
+    """Packed-array BA (the reference's ba_solve_packed):
+
+    kf_pack : (K, 14) f32 — R(9) t(3) fixed valid
+    mp_pack : (P, 4) f32 — pos(3) valid
+    obs_pack: (O, 6) f32 — kf mp u v ur valid  (indices exact below 2^24)
+    intr    : fx fy cx cy, as host floats or a (4,) tensor on the same device
+
+    Returns (out_kf (K, 12) [R t], out_mp (P, 3), out_obs (O, 2) [chi2
+    depth]). Mono only: stereo rows (ur >= 0) and bf != 0 are ROADMAP
+    Queue 1 "stereo" work and raise."""
+    if bf:
+        raise NotImplementedError("stereo BA (bf != 0): ROADMAP Queue 1, stereo slice")
+    K = kf_pack.shape[0]
+    res = ba_solve(
+        kf_pack[:, 0:9].reshape(K, 3, 3), kf_pack[:, 9:12], kf_pack[:, 12] > 0, kf_pack[:, 13] > 0,
+        mp_pack[:, 0:3], mp_pack[:, 3] > 0, obs_pack[:, 0].to(torch.int64),
+        obs_pack[:, 1].to(torch.int64), obs_pack[:, 2:4], obs_pack[:, 5] > 0,
+        obs_by_point.to(torch.int64), intr[0], intr[1], intr[2], intr[3], iters=iters,
+    )
+    out_kf = torch.cat([res["kf_R"].reshape(K, 9), res["kf_t"]], dim=1)
+    return out_kf, res["mp_pos"], torch.stack([res["chi2"], res["depth"]], dim=1)
+
+
 def ba_solve_wire(wire, intr, bf, *, K, P, O, MOPP, iters=LM_ITERS):
     """Flat-wire BA, the reference's ba_solve_wire layout.
 
     wire in : f32 [kf_pack K*14 (R t fixed valid) | mp_pack P*4 (pos valid) |
               obs_pack O*6 (kf mp u v ur valid) | obs_by_point P*MOPP].
-    wire out: f32 [out_kf K*12 (R t) | out_mp P*3 | out_obs O*2 (chi2 depth)].
-    Mono only: stereo rows (ur >= 0) and bf != 0 are ROADMAP Queue 1
-    "stereo" work and raise."""
-    if bf:
-        raise NotImplementedError("stereo BA (bf != 0): ROADMAP Queue 1, stereo slice")
+    wire out: f32 [out_kf K*12 (R t) | out_mp P*3 | out_obs O*2 (chi2 depth)]."""
     o0 = K * 14
     o1 = o0 + P * 4
     o2 = o1 + O * 6
-    kf = wire[:o0].reshape(K, 14)
-    mp = wire[o0:o1].reshape(P, 4)
-    obs = wire[o1:o2].reshape(O, 6)
-    obp = wire[o2:].reshape(P, MOPP).to(torch.int64)
-    fx, fy, cx, cy = (float(v) for v in intr)
-    res = ba_solve(
-        kf[:, 0:9].reshape(K, 3, 3), kf[:, 9:12], kf[:, 12] > 0, kf[:, 13] > 0,
-        mp[:, 0:3], mp[:, 3] > 0, obs[:, 0].to(torch.int64), obs[:, 1].to(torch.int64),
-        obs[:, 2:4], obs[:, 5] > 0, obp, fx, fy, cx, cy, iters=iters,
+    out_kf, out_mp, out_obs = ba_solve_packed(
+        wire[:o0].reshape(K, 14), wire[o0:o1].reshape(P, 4), wire[o1:o2].reshape(O, 6),
+        wire[o2:].reshape(P, MOPP), [float(v) for v in intr], bf, iters=iters,
     )
-    return torch.cat([
-        torch.cat([res["kf_R"].reshape(K, 9), res["kf_t"]], dim=1).reshape(-1),
-        res["mp_pos"].reshape(-1),
-        torch.stack([res["chi2"], res["depth"]], dim=1).reshape(-1),
-    ])
+    return torch.cat([out_kf.reshape(-1), out_mp.reshape(-1), out_obs.reshape(-1)])
 
 
 def build_obs_by_point(obs_mp, n_points, mopp, n_obs):

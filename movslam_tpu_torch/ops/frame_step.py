@@ -37,6 +37,13 @@ def pack_pt_i32(pt):
     return wrap_i32((q[:, 0] & 0xFFFF) | (q[:, 1] << 16))
 
 
+def unpack_pt_dev(bits):
+    """Device inverse of pack_pt_i32: (N,) i32 words -> (N, 2) f32 pixels."""
+    x = (((bits & 0xFFFF) ^ 0x8000) - 0x8000).to(torch.float32) / PT_FIX  # sign-extended low half
+    y = (bits >> 16).to(torch.float32) / PT_FIX
+    return torch.stack([x, y], dim=-1)
+
+
 def unpack_pt_np(bits):
     """Host inverse of pack_pt_i32 ((N,) i32 -> (N, 2) f64 pixels)."""
     bits = np.asarray(bits, np.int32)
@@ -116,12 +123,16 @@ def _project_gate(R, t, pos, intr, bounds, normal, mind, maxd):
 
 def _frame_program_body(
     img, prev_img, prev_state, mv_pack, kps_pack, coverage_area, prior_R, prior_t,
-    snap_fused, intr, sampler, dist_pack=None, *, reproj_err, threshold,
+    snap, intr, sampler, dist_pack=None, *, reproj_err, threshold,
     coverage_threshold, capacity, max_cov, has_dist=False,
 ):
-    """Stages 1-5 of the per-frame program. Returns (state, packed,
-    scalars, snap_visible); `sampler` draws the RANSAC samples of stage 1,
-    then of stage 2."""
+    """Stages 1-5 of the per-frame program, shared by tracked_frame_step and
+    window_step.tracked_window_step. `snap` is a prepared snapshot
+    (prep_snapshot's tuple): the window program sorts once per window, after
+    its device-side patch. `sampler` draws the RANSAC samples of stage 1,
+    then of stage 2. Returns (state, packed, scalars, snap_visible, R2, t2,
+    chain_ok), where chain_ok is the host gate that advances the pose chain
+    (res2.ok and n_ref >= 10, core/tracking.py track_fused)."""
     from ..core.extractor import _p_frame_body
 
     H, W = img.shape
@@ -131,7 +142,7 @@ def _frame_program_body(
         bounds = torch.tensor([0.0, float(W), 0.0, float(H)], dtype=torch.float32, device=dev)
     else:
         bounds = dist_pack[5:9]
-    snap_pack, snap_tid_sorted, snap_perm = prep_snapshot(snap_fused)
+    snap_pack, snap_tid_sorted, snap_perm = snap
     snap_pos, snap_normal = snap_pack[:, 0:3], snap_pack[:, 3:6]
     snap_mind, snap_maxd = snap_pack[:, 6], snap_pack[:, 7]
     snap_valid = snap_pack[:, 8] > 0
@@ -184,7 +195,8 @@ def _frame_program_body(
         pose,
         torch.stack([i32(n_ref), i32(res2["n_inliers"]), i32(res2["ok"]), i32(state.next_id)]),
     ])
-    return state, packed, scalars, snap_visible
+    chain_ok = res2["ok"] & (n_ref >= 10)
+    return state, packed, scalars, snap_visible, res2["R"], res2["t"], chain_ok
 
 
 def tracked_frame_step(
@@ -197,9 +209,9 @@ def tracked_frame_step(
     Returns dict(state, wire, packed, scalars, snap_visible)."""
     aux = mvk_pack[-2:].reshape(-1)[0:13]
     mvk_pack = mvk_pack[:-2]
-    state, packed, scalars, snap_visible = _frame_program_body(
+    state, packed, scalars, snap_visible, _, _, _ = _frame_program_body(
         img, prev_img, prev_state, mvk_pack[:n_mvs], mvk_pack[n_mvs:, 0:5], aux[12],
-        aux[0:9].reshape(3, 3), aux[9:12], snap_fused, intr, sampler, dist_pack,
+        aux[0:9].reshape(3, 3), aux[9:12], prep_snapshot(snap_fused), intr, sampler, dist_pack,
         reproj_err=reproj_err, threshold=threshold, coverage_threshold=coverage_threshold,
         capacity=capacity, max_cov=max_cov, has_dist=has_dist,
     )

@@ -26,7 +26,7 @@ def _jstate(d):
 def test_from_numpy_round_trips_a_jax_state():
     d = synthetic_pframe()["state"]
     js = _jstate(d)
-    ps = TrackState.from_numpy(jax_state_arrays(js))
+    ps = TrackState.from_numpy(jax_state_arrays(js), device="cpu")
     assert_state_equal(ps, js)
     got, want = ps.to_numpy(), js.to_numpy()
     for k in ("pt", "track_id", "age", "desc", "coverage", "rows"):
@@ -65,7 +65,7 @@ def test_p_frame_body_exact_with_coverage_lk():
         jnp.asarray(0.95, jnp.float32), 25.0, 0.2, capacity=512, max_cov=64,
     )
     got = extractor._p_frame_body(
-        t(d["img"]), t(d["prev_img"]), TrackState.from_numpy(st), *[t(a) for a in args],
+        t(d["img"]), t(d["prev_img"]), TrackState.from_numpy(st, device="cpu"), *[t(a) for a in args],
         t(np.float32(0.95)), 25.0, 0.2, capacity=512, max_cov=64,
     )
     assert np.asarray(want.coverage).sum() > 0
@@ -93,7 +93,7 @@ def test_extractor_on_stream_exact():
         assert_state_equal(p_st, j_st, lk_rows=lk_rows)
         assert px.next_id == jx.next_id
         j_prev, prev_img = j_st, smv.im_gray
-        p_prev = TrackState.from_numpy(jax_state_arrays(j_st))
+        p_prev = TrackState.from_numpy(jax_state_arrays(j_st), device="cpu")
     assert int(np.asarray(j_st.valid).sum()) > 50
 
 
@@ -113,7 +113,7 @@ def test_relocalize_merge_exact():
     jx.extract(f0, None, None)
     want = jx.extract(f1, j0, f0.im_gray, reloc=reloc)
     px = extractor.MOVExtractor(threshold=25, capacity=512, device="cpu")
-    got = px.extract(f1, TrackState.from_numpy(jax_state_arrays(j0)), t(f0.im_gray), reloc=reloc)
+    got = px.extract(f1, TrackState.from_numpy(jax_state_arrays(j0), device="cpu"), t(f0.im_gray), reloc=reloc)
     # Relocalized rows are LK-tracked: they lead the merged state.
     lk_rows = np.isin(np.asarray(want.track_id), ids[:60]) | np.asarray(want.coverage)
     assert_state_equal(got, want, lk_rows=lk_rows)

@@ -67,7 +67,7 @@ def test_tracked_frame_step_wire(seed):
     _, k = jax.random.split(key)
     k1, k2 = jax.random.split(k)
     got = frame_step.tracked_frame_step(
-        t(img), t(prev_img), TrackState.from_numpy(jax_state_arrays(st0)), t(mvk), t(snap),
+        t(img), t(prev_img), TrackState.from_numpy(jax_state_arrays(st0), device="cpu"), t(mvk), t(snap),
         t(intr), replay_jax_draws([k1, k2]), **kw,
     )
     N, C = 512, frame_step.packed_cols()

@@ -4,8 +4,8 @@
 (b) the port against the JAX drive on the same stream, at trajectory level
     (their RANSAC generators differ, so frame-level poses are not compared);
 (d) the port's synthetic stream renders the reference's frames;
-(e) the port imports and runs with jax, flax, yaml, cv2 and the JAX
-    package blocked — the machine with the card has none of the first four,
+(e) the port imports and runs, per frame and one window, with jax, flax,
+    yaml, cv2 and the JAX package blocked — the machine with the card has none of the first four,
     and the port keeps its own copies of what it needs from the fifth;
 plus the explicit-device rule. ((c), TrackState.from_numpy on a JAX state,
 is in tests/test_torch_extractor.py.)"""
@@ -22,6 +22,7 @@ from movslam_tpu_torch.config.settings import MONOCULAR, Settings
 from movslam_tpu_torch.core.camera import Pinhole
 from movslam_tpu_torch.core.system import System
 from movslam_tpu_torch.core.tracking import State
+from movslam_tpu_torch.core.trackstate import TrackState
 from movslam_tpu_torch.io.synthetic import SyntheticStream
 from tests._torch_parity import assert_exact
 from tests.test_pipeline import _umeyama_ate
@@ -139,8 +140,12 @@ def test_runs_with_jax_flax_yaml_cv2_blocked(tmp_path):
         for k in range(5):
             smv = stream.frame(k)
             system.track_monocular(smv.timestamp, smv)
+        items = [(f.timestamp, f) for f in (stream.frame(k) for k in range(5, 9))]
+        poses = system.track_monocular_batch(items)  # one window or more
         system.shutdown()
         assert system.tracking.state.name == "OK", system.tracking.state
+        assert system.counts["windows"] >= 1 and len(poses) == 4, system.counts
+        assert system.image_count == 9 and system.get_total_lost() == 0
         blocked = ("jax", "jaxlib", "flax", "yaml", "cv2", "movslam_tpu")
         loaded = [m for m in sys.modules if m.split(".")[0] in blocked]
         assert all(sys.modules[m] is None for m in loaded), loaded
@@ -179,4 +184,8 @@ def test_device_is_explicit():
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         System(port_settings(), System.STEREO, device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        System(port_settings(), MONOCULAR, device="cpu").track_monocular_batch([])
+        System(port_settings(), MONOCULAR, device="cpu").track_stereo_batch([])
+    with pytest.raises(TypeError):  # nothing picks the CPU on its own
+        TrackState.empty(8)
+    with pytest.raises(TypeError):
+        TrackState.from_numpy({})
