@@ -19,8 +19,8 @@ Phases (any failure exits nonzero and prints no result line):
                640x480, with the gates of tests/test_pipeline.py (0 lost,
                live ATE < 0.35 m, post-hoc ATE < 0.10 m) and
                score_candidates launched once on every P-frame.
-  4. launches: the same drive twice more under torch.profiler over frames
-               30-39: as it is, and with the scoring step put back to the
+  4. launches: the first 24 frames of the same drive twice more, frames
+               16-23 under torch.profiler: as it is, and with the scoring step put back to the
                unfused composition (the score_blocks kernel inside
                score_candidates_ref), counting CUDA launches per frame.
   5. windows : the windowed drive on the card at full width (640x480,
@@ -29,13 +29,31 @@ Phases (any failure exits nonzero and prints no result line):
                seed=42): 48 warm-up frames, then 96 timed ones fed to
                System.track_monocular_batch in batches of 8 with flush=False
                and one final flush=True; 16 more frames under torch.profiler
-               for the launches per frame inside a window; and a per-frame
-               drive of the same frames for comparison. Gates: 0 lost, every
+               for the launches per frame inside a window; 16 more in
+               localization mode (activate_localization_mode: keyframes, map
+               points and the map's change index must not move, >= 12 of the
+               16 frames answered); and a per-frame drive of the warm-up and
+               the first 48 timed frames for comparison. Gates: 0 lost, every
                frame counted and answered, >= 5 keyframes, > 100 map points,
                the ATE bounds of phase 3, at least one speculative window and
                one mapper job committed from a window's wire, and
                score_candidates launched once for every P-frame the system
                says it dispatched (re-dispatches after rewinds included).
+  6. stereo  : System(settings, STEREO) on the card at full width (640x480,
+               b = 0.25 m, bf = 80) over SyntheticStereoStream(seed=5): a
+               per-frame drive of 25 pairs (track_stereo) and a windowed
+               drive (track_stereo_batch, W=8, pipeline_depth=2, flush=False,
+               batches of 8) of 16 warm-up + 48 timed pairs, then 8 more
+               under torch.profiler. Gates: 0 lost in the windowed drive,
+               every frame answered, state OK at the end of both, > 100 map
+               points, metric error (estimate composed with the ground-truth
+               pose of the init frame, no fitted scale) median < 0.20 m and
+               max < 0.8 m over the windowed drive's 64 warm-up and timed
+               pairs, median < 0.35 m per frame,
+               score_candidates launched once for every left P-frame
+               dispatched, and a mapper job with bf != 0 committed from a
+               window's wire. Rewinds are reported, not gated: a stereo
+               window always rewinds at a mid-window keyframe.
 Before the last line it prints the card's name and power limit and one JSON
 line describing each kernel; the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -54,8 +72,13 @@ import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 N_FRAMES = 40
-PROFILED = range(30, 40)
+L_FRAMES = 24  # phase 4's drives
+PROFILED = range(16, 24)
 W_WARM, W_TIMED, W_PROFILED, W_BATCH = 48, 96, 16, 8  # phase 5, in frames
+W_LOC = 16  # phase 5: frames tracked in localization mode
+PF_TIMED = 48  # phase 5: timed frames of the per-frame comparison drive
+S_PER_FRAME, S_WARM, S_TIMED, S_PROFILED = 25, 16, 48, 8  # phase 6, in stereo pairs
+STEREO_B, STEREO_BF = 0.25, 80.0
 PROF_STAGES = ("disp_pack_host", "disp_upload", "disp_commit_snap", "disp_jit_call", "disp_tail",
                "rep_wire_pull", "rep_pre", "rep_track_fused")
 GRAPH_LAUNCHES = 200
@@ -229,14 +252,14 @@ def drive(system_cls, settings, frames, monocular, profile_frames=()):
     """One per-frame drive; returns (system, est centers, profiler or None,
     wall seconds of the profiled frames)."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import profile
 
     system = system_cls(settings, monocular, device="cuda")
     est, prof, wall = {}, None, 0.0
     for k, smv in enumerate(frames):
         if profile_frames and k == profile_frames[0]:
             torch.cuda.synchronize()
-            prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+            prof = profile(activities=drive_activities())
             prof.__enter__()
             t0 = time.perf_counter()
         pose = system.track_monocular(smv.timestamp, smv)
@@ -249,6 +272,15 @@ def drive(system_cls, settings, frames, monocular, profile_frames=()):
             prof.__exit__(None, None, None)
     torch.cuda.synchronize()
     return system, est, prof, wall
+
+
+def drive_activities():
+    """What the drives are profiled for: the CUDA runtime's launch calls and
+    the kernels the device ran. The host's operator events are left out: at
+    ~10k launches per frame they triple the trace and slow the drive."""
+    from torch.profiler import ProfilerActivity
+
+    return [ProfilerActivity.CUDA]
 
 
 def launch_counts(prof, n_frames):
@@ -271,9 +303,10 @@ def launch_counts(prof, n_frames):
 def windowed_phase(System, settings, monocular, SyntheticStream, kernels, card):
     """Phase 5 (see the module docstring). Returns the numbers it printed."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import profile
 
-    n_fed = W_WARM + W_TIMED + W_PROFILED
+    n_tracked = W_WARM + W_TIMED + W_PROFILED  # frames tracked with mapping on
+    n_fed = n_tracked + W_LOC
     stream = SyntheticStream(n_points=400, seed=42)
     items = [(f.timestamp, f) for f in (stream.frame(k) for k in range(n_fed))]  # rendering is set-up
     gt = lambda k: -(stream.gt_pose(k)[0].T @ stream.gt_pose(k)[1])  # noqa: E731
@@ -300,9 +333,9 @@ def windowed_phase(System, settings, monocular, SyntheticStream, kernels, card):
 
     # Launches per frame inside windows: the next frames under the profiler.
     before = collections.Counter(system.counts)
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=drive_activities()) as prof:
         t0 = time.perf_counter()
-        for k in range(W_WARM + W_TIMED, n_fed, W_BATCH):
+        for k in range(W_WARM + W_TIMED, n_tracked, W_BATCH):
             poses += system.track_monocular_batch(items[k:k + W_BATCH], flush=False)
         poses += system.track_monocular_batch([], flush=True)
         torch.cuda.synchronize()
@@ -310,15 +343,30 @@ def windowed_phase(System, settings, monocular, SyntheticStream, kernels, card):
     profiled = collections.Counter(system.counts)
     profiled.subtract(before)
     host, devk, busy = launch_counts(prof, W_PROFILED)
+
+    # Localization mode: the map is frozen, tracking goes on.
+    m = system.atlas.current
+    system.activate_localization_mode()
+    frozen = (m.n_keyframes(), m.n_mappoints(), m.change_index)
+    loc_poses = []
+    for k in range(n_tracked, n_fed, W_BATCH):
+        loc_poses += system.track_monocular_batch(items[k:k + W_BATCH], flush=False)
+    loc_poses += system.track_monocular_batch([], flush=True)
+    loc_after = (m.n_keyframes(), m.n_mappoints(), m.change_index)
+    loc_answered = sum(p is not None for p in loc_poses)
+    poses += loc_poses
     launches = {"score_candidates": kernels.score_candidates.launches,
                 "score_blocks": kernels.score_blocks.launches}
     system.shutdown()
     torch.cuda.synchronize()
 
-    m = system.atlas.current
+    # The ATE is of the frames tracked with mapping on, as before the
+    # localization frames were added; theirs is printed beside it.
     est = {k: -(p[0].T @ p[1]) for k, p in enumerate(poses) if p is not None}
-    ate_live = umeyama_ate([gt(k) for k in est], list(est.values()))
-    traj = system.frame_trajectory()
+    mapped = {k: c for k, c in est.items() if k < n_tracked}
+    ate_live = umeyama_ate([gt(k) for k in mapped], list(mapped.values()))
+    ate_live_all = umeyama_ate([gt(k) for k in est], list(est.values()))
+    traj = [row for row in system.frame_trajectory() if round(row[0] * 30.0) < n_tracked]
     ate_post = umeyama_ate([gt(round(ts * 30.0)) for ts, _, _, _ in traj],
                            [-(R.T @ t) for _, R, t, _ in traj])
     c = system.counts
@@ -327,13 +375,13 @@ def windowed_phase(System, settings, monocular, SyntheticStream, kernels, card):
 
     # The same frames through the per-frame drive, in the same call.
     psys = System(settings, monocular, device="cuda")
-    for k, (ts, smv) in enumerate(items[:W_WARM + W_TIMED]):
+    for k, (ts, smv) in enumerate(items[:W_WARM + PF_TIMED]):
         if k == W_WARM:
             torch.cuda.synchronize()
             t0 = time.perf_counter()
         psys.track_monocular(ts, smv)
     torch.cuda.synchronize()
-    pf_ms = 1e3 * (time.perf_counter() - t0) / W_TIMED
+    pf_ms = 1e3 * (time.perf_counter() - t0) / PF_TIMED
     pf_lost = psys.get_total_lost()
     psys.shutdown()
     torch.cuda.synchronize()
@@ -341,8 +389,11 @@ def windowed_phase(System, settings, monocular, SyntheticStream, kernels, card):
     print(f"windows: windowed drive {win_ms:.2f} ms/frame ({1e3 / win_ms:.2f} frames/s) over the "
           f"{W_TIMED} timed frames (W={system.window}, depth {system.pipeline_depth}, batches of "
           f"{W_BATCH}, flush=False) on {card}", flush=True)
-    print(f"windows: per-frame drive of the same frames {pf_ms:.2f} ms/frame ({1e3 / pf_ms:.2f} "
-          f"frames/s), lost {pf_lost}, in the same call on {card}", flush=True)
+    print(f"windows: per-frame drive of the warm-up and the first {PF_TIMED} timed frames {pf_ms:.2f} "
+          f"ms/frame ({1e3 / pf_ms:.2f} frames/s), lost {pf_lost}, in the same call on {card}", flush=True)
+    print(f"windows: localization mode over {W_LOC} more frames: {loc_answered} answered; keyframes, "
+          f"map points, change index {frozen} -> {loc_after}; live ATE with these frames "
+          f"{ate_live_all:.4f} m", flush=True)
     print(f"windows: timed windows by length {by_len}, {timed['window_frames']} window frames, "
           f"{timed['per_frame_p']} per-frame P-frames, {timed['spec_windows']} speculative windows, "
           f"{timed['rewinds']} rewinds ({100.0 * timed['rewinds'] / W_TIMED:.2f} per 100 frames) on {card}",
@@ -365,7 +416,7 @@ def windowed_phase(System, settings, monocular, SyntheticStream, kernels, card):
     checks = {
         "0 lost": system.get_total_lost() == 0,
         "every frame counted": system.image_count == n_fed,
-        "one pose per frame": len(poses) == n_fed and all(p is not None for p in poses[W_WARM:]),
+        "one pose per frame": len(poses) == n_fed and all(p is not None for p in poses[W_WARM:n_tracked]),
         ">= 5 keyframes": m.n_keyframes() >= 5,
         "> 100 map points": m.n_mappoints() > 100,
         f"live ATE < {LIVE_ATE_MAX}": ate_live < LIVE_ATE_MAX,
@@ -373,12 +424,17 @@ def windowed_phase(System, settings, monocular, SyntheticStream, kernels, card):
         "a speculative window": c["spec_windows"] >= 1,
         "a mapper job committed from a window's wire": system.mapper.n_fused_jobs >= 1,
         "score_candidates once per dispatched P-frame": launches["score_candidates"] == dispatched,
+        "localization mode leaves the map as it was": loc_after == frozen,
+        f">= {W_LOC - 4} of {W_LOC} localization frames answered": loc_answered >= W_LOC - 4,
     }
     bad = [name for name, ok in checks.items() if not ok]
     if bad:
         fail(f"windowed drive gates failed: {bad}")
     return {
         "ms_per_frame": win_ms, "per_frame_drive_ms_per_frame": pf_ms, "per_frame_drive_lost": pf_lost,
+        "per_frame_drive_timed_frames": PF_TIMED,
+        "localization": {"frames": W_LOC, "answered": loc_answered, "before": frozen, "after": loc_after,
+                         "ate_live_with_these_frames": ate_live_all},
         "windows_by_length": by_len,
         "window_frames": timed["window_frames"], "per_frame_p": timed["per_frame_p"],
         "speculative_windows": timed["spec_windows"], "rewinds": timed["rewinds"],
@@ -387,6 +443,190 @@ def windowed_phase(System, settings, monocular, SyntheticStream, kernels, card):
         "ate_live": ate_live, "ate_post": ate_post, "keyframes": m.n_keyframes(),
         "launches": launches, "p_frames_dispatched": dispatched,
     }
+
+
+def metric_errors(system, stream):
+    """Per-frame camera-center error in metres, no fitted scale or alignment:
+    the estimate's world frame is the init camera frame (identity there,
+    Tracking.cc:524), so it is composed with the ground-truth pose of the
+    init frame. Returns (init frame, errors of frames init+1, init+2, ...)."""
+    import numpy as np
+
+    tr = system.tracking
+    k0 = min(kf.frame_id for kf in system.atlas.current.keyframes.values())
+    R0, t0 = stream.gt_pose(k0)
+    errs = []
+    for k, (R_rel, t_rel) in enumerate(tr.rel_poses):
+        if k + 1 < k0:
+            continue
+        ref = tr.rel_refs[k]
+        R, t = R_rel @ ref.R, R_rel @ ref.t + t_rel
+        Rg, tg = R @ R0, R @ t0 + t
+        R_gt, t_gt = stream.gt_pose(k + 1)
+        errs.append(float(np.linalg.norm(R_gt.T @ t_gt - Rg.T @ tg)))
+    return k0, np.array(errs)
+
+
+def stereo_phase(System, settings, stereo, State, SyntheticStereoStream, kernels, card):
+    """Phase 6 (see the module docstring). Returns the numbers it printed."""
+    import numpy as np
+    import torch
+    from torch.profiler import profile
+
+    n_win = S_WARM + S_TIMED + S_PROFILED
+    stream = SyntheticStereoStream(seed=5)
+    t_setup = time.perf_counter()
+    items = [(left.timestamp, left, right) for left, right in stream.pairs(n_win)]  # set-up
+    print(f"stereo: rendered {n_win} pairs in {time.perf_counter() - t_setup:.1f} s", flush=True)
+
+    def summary(system, poses, n, n_gated):
+        m = system.atlas.current
+        k0, errs_all = metric_errors(system, stream)
+        errs = errs_all[: max(n_gated - 1 - k0, 1)]  # frames k0+1 .. n_gated-1
+        kfs = [kf for kf in m.keyframes.values() if kf.depth_right is not None and len(kf.depth_right)]
+        c = system.counts
+        return {
+            "state": system.tracking.state.name, "lost": system.get_total_lost(),
+            "keyframes": m.n_keyframes(), "map_points": m.n_mappoints(), "init_frame": k0,
+            "frames": system.image_count, "poses": len(poses),
+            "answered_from_init": all(p is not None for p in poses[k0:]) and len(poses) == n,
+            "err_median_m": float(np.median(errs)), "err_max_m": float(errs.max()),
+            "err_frames": len(errs), "err_max_all_frames_m": float(errs_all.max()),
+            "slots_with_depth": float(np.mean([(kf.depth_right > 0).mean() for kf in kfs])),
+            "rewinds": c["rewinds"], "window_frames": c["window_frames"], "per_frame_p": c["per_frame_p"],
+            "p_frames_dispatched": c["window_frames"] + c["per_frame_p"],
+            "launches": {"score_candidates": kernels.score_candidates.launches,
+                         "score_blocks": kernels.score_blocks.launches},
+        }
+
+    # The per-frame drive.
+    kernels.score_blocks.launches = kernels.score_candidates.launches = 0
+    psys = System(settings, stereo, device="cuda")
+    poses = []
+    for k, it in enumerate(items[:S_PER_FRAME]):
+        if k == 5:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+        poses.append(psys.track_stereo(*it))
+    torch.cuda.synchronize()
+    pf_ms = 1e3 * (time.perf_counter() - t0) / (S_PER_FRAME - 5)
+    psys.shutdown()
+    torch.cuda.synchronize()
+    pf = summary(psys, poses, S_PER_FRAME, S_PER_FRAME)
+    pf["ms_per_frame"] = pf_ms
+    print(f"stereo: per-frame drive of {S_PER_FRAME} pairs: {pf_ms:.2f} ms/frame over pairs 5-"
+          f"{S_PER_FRAME - 1}, state {pf['state']}, init at frame {pf['init_frame']}, lost {pf['lost']}, "
+          f"{pf['keyframes']} keyframes, {pf['map_points']} map points, metric error median "
+          f"{pf['err_median_m']:.4f} m max {pf['err_max_m']:.4f} m, {pf['slots_with_depth']:.3f} of "
+          f"keyframe slots with depth, score_candidates launches {pf['launches']['score_candidates']} "
+          f"for {pf['p_frames_dispatched']} left P-frames on {card}", flush=True)
+
+    # The windowed drive.
+    kernels.score_blocks.launches = kernels.score_candidates.launches = 0
+    system = System(settings, stereo, device="cuda")
+    poses = []
+    for k in range(0, S_WARM, W_BATCH):  # the last warm-up batch drains the pipeline
+        poses += system.track_stereo_batch(items[k:k + W_BATCH], flush=k + W_BATCH >= S_WARM)
+    torch.cuda.synchronize()
+    warm = collections.Counter(system.counts)
+    warm_jobs = (system.mapper.n_fused_jobs, system.mapper.n_standalone_jobs)
+    t0 = time.perf_counter()
+    for k in range(S_WARM, S_WARM + S_TIMED, W_BATCH):
+        poses += system.track_stereo_batch(items[k:k + W_BATCH], flush=False)
+    poses += system.track_stereo_batch([], flush=True)
+    torch.cuda.synchronize()
+    win_ms = 1e3 * (time.perf_counter() - t0) / S_TIMED
+    timed = collections.Counter(system.counts)
+    timed.subtract(warm)
+    jobs = (system.mapper.n_fused_jobs - warm_jobs[0], system.mapper.n_standalone_jobs - warm_jobs[1])
+    before = collections.Counter(system.counts)
+    with profile(activities=drive_activities()) as prof:
+        t0 = time.perf_counter()
+        poses += system.track_stereo_batch(items[S_WARM + S_TIMED:], flush=True)
+        torch.cuda.synchronize()
+        prof_wall_ms = 1e3 * (time.perf_counter() - t0) / S_PROFILED
+    profiled = collections.Counter(system.counts)
+    profiled.subtract(before)
+    host, devk, busy = launch_counts(prof, S_PROFILED)
+    # A rewind dispatches frames again: launches per frame the window program ran.
+    per_window_frame = host * S_PROFILED / max(profiled["window_frames"], 1)
+    system.shutdown()
+    torch.cuda.synchronize()
+    win = summary(system, poses, n_win, S_WARM + S_TIMED)  # the profiled pairs are not gated
+    by_len = {int(k.rsplit("_", 1)[1]): v for k, v in sorted(timed.items()) if k.startswith("windows_len_") and v}
+    win.update({
+        "ms_per_frame": win_ms, "windows_by_length": by_len, "timed_rewinds": timed["rewinds"],
+        "timed_window_frames": timed["window_frames"], "timed_per_frame_p": timed["per_frame_p"],
+        "speculative_windows": timed["spec_windows"], "mapper_bf": system.mapper.bf,
+        "mapper_jobs_fused": system.mapper.n_fused_jobs, "mapper_jobs_standalone": system.mapper.n_standalone_jobs,
+        "timed_mapper_jobs_fused": jobs[0], "timed_mapper_jobs_standalone": jobs[1],
+        "profiled": {"host_launches": host, "device_kernels": devk, "busy_ms": busy, "wall_ms": prof_wall_ms,
+                     "window_frames": profiled["window_frames"], "per_frame_p": profiled["per_frame_p"],
+                     "host_launches_per_window_frame": per_window_frame,
+                     "idle_share": 1 - busy / prof_wall_ms},
+    })
+    print(f"stereo: windowed drive {win_ms:.2f} ms/frame ({1e3 / win_ms:.2f} frames/s) over the {S_TIMED} "
+          f"timed pairs (W={system.window}, depth {system.pipeline_depth}, batches of {W_BATCH}, "
+          f"flush=False) on {card}", flush=True)
+    print(f"stereo: timed windows by length {by_len}, {timed['window_frames']} window frames, "
+          f"{timed['per_frame_p']} per-frame P-frames, {timed['spec_windows']} speculative windows, "
+          f"{timed['rewinds']} rewinds ({win['rewinds']} in the whole drive); mapper jobs run by a "
+          f"window {system.mapper.n_fused_jobs} (bf = {system.mapper.bf}), standalone "
+          f"{system.mapper.n_standalone_jobs} on {card}", flush=True)
+    print(f"stereo: {S_PROFILED} more pairs under the profiler ({profiled['window_frames']} window frames, "
+          f"{profiled['per_frame_p']} per-frame): {host:.1f} launch calls per pair "
+          f"({per_window_frame:.1f} per window frame dispatched), {devk:.1f} device kernels per pair, device "
+          f"busy {busy:.2f} ms of {prof_wall_ms:.2f} ms per pair with the profiler on "
+          f"(idle {1 - busy / prof_wall_ms:.3f}) on {card}", flush=True)
+    print(f"stereo: state {win['state']}, init at frame {win['init_frame']}, {win['keyframes']} keyframes, "
+          f"{win['map_points']} map points, {win['poses']} poses, lost {win['lost']}, metric error over the "
+          f"{S_WARM + S_TIMED} warm-up and timed pairs median {win['err_median_m']:.4f} m max "
+          f"{win['err_max_m']:.4f} m (max with the profiled pairs {win['err_max_all_frames_m']:.4f} m), "
+          f"{win['slots_with_depth']:.3f} of "
+          f"keyframe slots with depth; score_candidates launches {win['launches']['score_candidates']} "
+          f"for {win['p_frames_dispatched']} left P-frames dispatched ({win['window_frames']} in windows, "
+          f"{win['per_frame_p']} per frame)", flush=True)
+    # What the stereo depth costs: one eager lk_track call, left -> right, at
+    # the track capacity.
+    from movslam_tpu_torch.ops.lk import lk_track
+
+    left, right = (torch.as_tensor(items[20][i].im_gray, device="cuda") for i in (1, 2))
+    rng = np.random.default_rng(0)
+    pts = torch.as_tensor(rng.uniform(20, 460, (2048, 2)).astype(np.float32), device="cuda")
+    valid = torch.ones(2048, dtype=torch.bool, device="cuda")
+    lk_call = lambda: lk_track(left, right, pts, valid)  # noqa: E731
+    lk_wall_ms = call_ms(lk_call, reps=5, warmup=2)
+    with profile(activities=drive_activities()) as prof:
+        lk_call()
+        torch.cuda.synchronize()
+    lk_host, _, lk_busy = launch_counts(prof, 1)
+    lk = {"host_launches": lk_host, "busy_ms": lk_busy, "wall_ms": lk_wall_ms}
+    print(f"stereo: one lk_track call (left -> right, 2048 points, 640x480): {lk_host:.0f} launch calls, "
+          f"device busy {lk_busy:.2f} ms, {lk_wall_ms:.2f} ms per call on {card}", flush=True)
+
+    checks = {
+        "windowed: 0 lost": win["lost"] == 0,
+        "windowed: every frame counted and answered": win["frames"] == n_win and win["answered_from_init"],
+        "per frame: every frame counted and answered": pf["frames"] == S_PER_FRAME and pf["answered_from_init"],
+        "windowed: state OK": win["state"] == State.OK.name,
+        "per frame: state OK": pf["state"] == State.OK.name,
+        "windowed: > 100 map points": win["map_points"] > 100,
+        "per frame: > 100 map points": pf["map_points"] > 100,
+        "windowed: median error < 0.20 m": win["err_median_m"] < 0.20,
+        "windowed: max error < 0.8 m": win["err_max_m"] < 0.8,
+        "per frame: median error < 0.35 m": pf["err_median_m"] < 0.35,
+        "windowed: score_candidates once per left P-frame":
+            win["launches"]["score_candidates"] == win["p_frames_dispatched"] > 0,
+        "per frame: score_candidates once per left P-frame":
+            pf["launches"]["score_candidates"] == pf["p_frames_dispatched"] > 0,
+        "a stereo window ran": win["window_frames"] > 0,
+        "a mapper job with bf != 0 committed from a window's wire":
+            system.mapper.n_fused_jobs >= 1 and system.mapper.bf != 0,
+    }
+    bad = [name for name, ok in checks.items() if not ok]
+    if bad:
+        fail(f"stereo gates failed: {bad}")
+    return {"per_frame": pf, "windowed": win, "lk_track": lk}
 
 
 def main():
@@ -399,12 +639,13 @@ def main():
         fail("torch.cuda.is_available() is False: this smoke test needs an NVIDIA card")
     sys.path.insert(0, HERE)
     try:
-        from movslam_tpu_torch.config.settings import MONOCULAR, Settings
+        from movslam_tpu_torch.config.settings import MONOCULAR, STEREO, Settings
         from movslam_tpu_torch.core.camera import Pinhole
         from movslam_tpu_torch.core.system import System
         from movslam_tpu_torch.core.tracking import State
         from movslam_tpu_torch.io.mvimage import FrameType
         from movslam_tpu_torch.io.synthetic import SyntheticStream
+        from movslam_tpu_torch.io.synthetic_stereo import SyntheticStereoStream
         from movslam_tpu_torch.ops import kernels, propagate
     except ImportError as e:
         fail(f"the port (movslam_tpu_torch) does not import from {HERE}: {e}")
@@ -559,14 +800,14 @@ def main():
         propagate.score_candidates = scorer
         kernels.score_blocks.launches = kernels.score_candidates.launches = 0
         try:
-            psys, _, prof, wall = drive(System, s, frames, MONOCULAR, PROFILED)
+            psys, _, prof, wall = drive(System, s, frames[:L_FRAMES], MONOCULAR, PROFILED)
         finally:
             propagate.score_candidates = fused
         host, devk, busy = launch_counts(prof, len(PROFILED))
         per_frame[label] = {
             "host_launches": host, "device_kernels": devk, "busy_ms": busy,
             "wall_ms": wall * 1e3 / len(PROFILED),
-            "track_ms_10_29": float(np.mean(psys.track_ms[10:30])),
+            "track_ms_10_15": float(np.mean(psys.track_ms[10:PROFILED[0]])),
             "score_blocks": kernels.score_blocks.launches,
             "score_candidates": kernels.score_candidates.launches, "lost": psys.get_total_lost(),
         }
@@ -577,13 +818,11 @@ def main():
               f"{host:.1f} launch calls/frame, {devk:.1f} device kernels/frame, device busy "
               f"{busy:.2f} ms of {r['wall_ms']:.2f} ms/frame with the profiler on "
               f"(idle {1 - busy / r['wall_ms']:.3f}); "
-              f"track_ms frames 10-29 {r['track_ms_10_29']:.2f} ms; score_blocks launches "
+              f"track_ms frames 10-{PROFILED[0] - 1} {r['track_ms_10_15']:.2f} ms; score_blocks launches "
               f"{r['score_blocks']}, score_candidates launches {r['score_candidates']}, "
               f"lost {r['lost']} on {card}", flush=True)
     d_host = per_frame["unfused"]["host_launches"] - per_frame["score_candidates"]["host_launches"]
-    d_dev = per_frame["unfused"]["device_kernels"] - per_frame["score_candidates"]["device_kernels"]
-    print(f"launches: fusing the scoring step removes {d_host:.1f} launch calls/frame "
-          f"({d_dev:.1f} device kernels/frame)", flush=True)
+    print(f"launches: fusing the scoring step removes {d_host:.1f} launch calls/frame", flush=True)
     if per_frame["unfused"]["score_blocks"] == 0:
         fail("the unfused composition never launched score_blocks")
     phase_done("launches")
@@ -591,6 +830,15 @@ def main():
     # --- 5. the windowed drive on the card -------------------------------------
     win = windowed_phase(System, s, MONOCULAR, SyntheticStream, kernels, card)
     phase_done("windows")
+
+    # --- 6. stereo, per frame and windowed, on the card ---------------------------
+    ss = Settings()
+    ss.camera1 = Pinhole(320.0, 320.0, 320.0, 240.0, 640, 480)
+    ss.fps = 30.0
+    ss.sensor = STEREO
+    ss.b, ss.bf, ss.th_depth = STEREO_B, STEREO_BF, 50.0
+    ste = stereo_phase(System, ss, STEREO, State, SyntheticStereoStream, kernels, card)
+    phase_done("stereo")
     check_banned()
 
     src = "movslam_tpu_torch/csrc/score_blocks.cu"
@@ -598,14 +846,17 @@ def main():
     rows = []
     for name, launched, path in (
         ("score_candidates", launches["score_candidates"],
-         "per-frame drive (phase 3); launches_windowed: windowed drive (phase 5)"),
+         "per-frame drive (phase 3); launches_windowed: windowed drive (phase 5); "
+         "launches_stereo_*: the stereo drives (phase 6)"),
         ("score_blocks", per_frame["unfused"]["score_blocks"],
          "per-frame drive with unfused scoring (phase 4)"),
     ):
         t = times[name]
         rows.append({
             "name": name, "route": "cuda", "source": src, "replaces": replaces,
-            "launches": launched, "launches_windowed": win["launches"][name], "path": path,
+            "launches": launched, "launches_windowed": win["launches"][name],
+            "launches_stereo_windowed": ste["windowed"]["launches"][name],
+            "launches_stereo_per_frame": ste["per_frame"]["launches"][name], "path": path,
             "max_abs_err": cand_err if name == "score_candidates" else blocks_err,
             "ms": t["ms"], "wrapper_ms": t["wrapper_ms"], "profiler_ms": t["profiler_ms"],
             "plain_ms": t["plain_ms"], "plain_device_ms": t["plain_device_ms"],
@@ -613,6 +864,7 @@ def main():
         })
     print(json.dumps({"launches_per_frame": per_frame, "card": card}), flush=True)
     print(json.dumps({"windowed_drive": win, "card": card}), flush=True)
+    print(json.dumps({"stereo_drive": ste, "card": card}), flush=True)
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),

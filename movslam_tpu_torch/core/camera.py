@@ -41,6 +41,12 @@ class Pinhole:
             y = (y0 - dy) / radial
         return np.stack([x * self.fx + self.cx, y * self.fy + self.cy], axis=-1).astype(np.float32)
 
+    def unproject(self, uv, z):
+        """Camera-frame points of pixels uv (..., 2) at depths z (...)."""
+        uv, z = np.asarray(uv, np.float64), np.asarray(z, np.float64)
+        return np.stack([(uv[..., 0] - self.cx) * z / self.fx, (uv[..., 1] - self.cy) * z / self.fy, z],
+                        axis=-1)
+
     def undistorted_bounds(self):
         """(minx, maxx, miny, maxy) of the undistorted image
         (Frame::ComputeImageBounds)."""

@@ -32,7 +32,7 @@ class Frame:
         self.pose_set = False
         self.reference_kf = None
         self.lost = False
-        self.depth_right = None  # stereo is not part of the mono slice
+        self.depth_right = None  # stereo: per-slot depth and right-image u, -1 = none
         self.uright = None
         self._lazy_src = None
         if track_state is not None:
@@ -96,9 +96,11 @@ class Frame:
         self._mappoints = None
 
     @staticmethod
-    def from_packed(packed, timestamp=0.0, image=None, fid=None, has_dist=False):
+    def from_packed(packed, timestamp=0.0, image=None, fid=None, has_dist=False, stereo=False):
         """Build from the per-frame program's int32 wire rows
-        (ops/frame_step.packed_cols layout). Descriptors stay on the device."""
+        (ops/frame_step.packed_cols layout: pt | tid | meta [| pt_un if
+        has_dist] [| depth, ur as f32 bits if stereo]). Descriptors stay on
+        the device."""
         f = Frame(None, timestamp=timestamp, image=image, fid=fid)
         words = np.ascontiguousarray(packed, np.int32)
         meta = words[:, 2].astype(np.int64)
@@ -108,6 +110,10 @@ class Frame:
         meta = meta[rows]
         f.pts_raw = unpack_pt_np(sel[:, 0])
         f.pts = unpack_pt_np(sel[:, 3]) if has_dist else f.pts_raw
+        if stereo:
+            c = 4 if has_dist else 3
+            f.depth_right = np.ascontiguousarray(sel[:, c]).view(np.float32).astype(np.float64)
+            f.uright = np.ascontiguousarray(sel[:, c + 1]).view(np.float32).astype(np.float64)
         f.track_ids = sel[:, 1].astype(np.int64)
         f.ages = (meta & 0xFFF).astype(np.int32)
         f.desc = None

@@ -1,7 +1,7 @@
 """LocalMapping: keyframe processing, point culling, triangulation, fusion
 and local bundle adjustment.
 
-Port of the mono path of movslam_tpu/core/local_mapping.py
+Port of movslam_tpu/core/local_mapping.py
 (LocalMapping.cc:50-115): process new KF -> cull recent points ->
 triangulate every candidate pair of every neighbour in one device batch ->
 fuse with neighbours -> local BA. Two modes:
@@ -93,14 +93,20 @@ def assemble_ba_problem(kfs, n_opt, mps, init_kf_id, K, mopp=MOPP,
         j_idx = np.where(sorted_ids[pos] == mids, sort_perm[pos], -1)
         keep = j_idx >= 0
         slots, j_idx = slots[keep], j_idx[keep]
+        if kf.uright is not None:
+            ur = np.where(kf.uright[slots] >= 0, kf.uright[slots], -1.0)
+        else:
+            ur = np.full(len(slots), -1.0)
         blocks.append((np.full(len(slots), i, np.int32), j_idx.astype(np.int32),
-                       kf.pts[slots].astype(np.float32), slots.astype(np.int32), kf.id))
+                       kf.pts[slots].astype(np.float32), slots.astype(np.int32), kf.id,
+                       ur.astype(np.float32)))
     if not blocks:
         return None
     all_kf = np.concatenate([b[0] for b in blocks])
     all_mp = np.concatenate([b[1] for b in blocks])
     all_uv = np.concatenate([b[2] for b in blocks])
     all_slot = np.concatenate([b[3] for b in blocks])
+    all_ur = np.concatenate([b[5] for b in blocks])
     all_kfid = np.concatenate([np.full(len(b[0]), b[4], np.int64) for b in blocks])
     order = np.lexsort((all_kfid, all_mp))
     mp_sorted = all_mp[order]
@@ -115,7 +121,8 @@ def assemble_ba_problem(kfs, n_opt, mps, init_kf_id, K, mopp=MOPP,
     obs_pack[:n_obs, 0] = all_kf[sel]
     obs_pack[:n_obs, 1] = all_mp[sel]
     obs_pack[:n_obs, 2:4] = all_uv[sel]
-    obs_pack[:, 4] = -1.0  # no stereo column
+    obs_pack[:, 4] = -1.0  # right-image u of stereo observations, -1 = mono
+    obs_pack[:n_obs, 4] = all_ur[sel]
     obs_pack[:n_obs, 5] = 1.0
     obs_mp = np.where(obs_pack[:, 5] > 0, obs_pack[:, 1].astype(np.int64), P)
     return {
@@ -178,10 +185,14 @@ def commit_ba_result(res, obs_meta, kfs, mps, kf_fixed, m):
 
 
 class LocalMapping:
-    def __init__(self, atlas, camera, device, far_points=0.0):
+    def __init__(self, atlas, camera, device, monocular=True, far_points=0.0, bf=0.0,
+                 stereo_b=0.0):
         self.atlas = atlas
         self.camera = camera
         self.device = device
+        self.monocular = monocular
+        self.bf = float(bf)  # baseline * fx of a stereo rig, 0 for mono
+        self.stereo_b = float(stereo_b)
         self.far_points = far_points > 0.0
         self.th_far_points = far_points
         self.recent_points = []
@@ -397,14 +408,15 @@ class LocalMapping:
             if kf.id not in mp.obs:
                 mp.add_observation(kf, slot)
                 touched.append(mp)
-            else:
+            else:  # only fresh stereo points from Tracking
                 self.recent_points.append(mp)
         update_normals_batch(touched, m)
         kf.update_connections(m)
         m.add_keyframe(kf)
 
     def _map_point_culling(self, m):
-        """LocalMapping::MapPointCulling (LocalMapping.cc:117-156), mono."""
+        """LocalMapping::MapPointCulling (LocalMapping.cc:117-156)."""
+        th_obs = 2 if self.monocular else 3
         cur_id = self.current_kf.id
         keep = []
         for mp in self.recent_points:
@@ -412,7 +424,7 @@ class LocalMapping:
                 continue
             if mp.found_ratio() < 0.25:
                 mp.set_bad(m)
-            elif cur_id - mp.first_kf_id >= 2 and mp.n_obs() <= 2:
+            elif cur_id - mp.first_kf_id >= 2 and mp.n_obs() <= th_obs:
                 mp.set_bad(m)
             elif cur_id - mp.first_kf_id < 3:
                 keep.append(mp)
@@ -441,8 +453,11 @@ class LocalMapping:
         cand, P2s = [], []
         for kf2 in neighbors:
             baseline = np.linalg.norm(kf2.center() - Ow1)
-            med = kf2.scene_median_depth(m)
-            if med <= 0 or baseline / med < 0.01:
+            if self.monocular:
+                med = kf2.scene_median_depth(m)
+                if med <= 0 or baseline / med < 0.01:
+                    continue
+            elif baseline < self.stereo_b:
                 continue
             s1, s2 = search_for_triangulation(kf1, kf2)
             if len(s1) == 0:
@@ -482,6 +497,23 @@ class LocalMapping:
         R2_arr = np.stack([kf2.R for (kf2, _, _) in cand])
         t2_arr = np.stack([kf2.t for (kf2, _, _) in cand])
         Ow2_arr = np.einsum("cij,cj->ci", -R2_arr.transpose(0, 2, 1), t2_arr)
+
+        # Stereo: unproject from the stereo depth where the stereo parallax
+        # beats the motion parallax (LocalMapping.cc:341-393).
+        if not self.monocular:
+            s1_arr = np.fromiter((a for (_, a, _) in cand), np.int64, C)
+            z1s = kf1.depth_right[s1_arr] if kf1.depth_right is not None else np.full(C, -1.0)
+            z2s = np.array([
+                kf2.depth_right[b] if kf2.depth_right is not None else -1.0
+                for (kf2, _, b) in cand
+            ])
+            cps1 = np.where(z1s > 0, np.cos(2 * np.arctan2(self.stereo_b / 2, z1s)), 2.0)
+            cps2 = np.where(z2s > 0, np.cos(2 * np.arctan2(self.stereo_b / 2, z2s)), 2.0)
+            use1 = (z1s > 0) & (cps1 <= cps2)
+            use2 = (z2s > 0) & (cps2 < cps1) & ~use1
+            X1 = (cam.unproject(uv1, z1s) - kf1.t) @ kf1.R  # R^T (pc - t), row-wise
+            X2 = np.einsum("cji,cj->ci", R2_arr, cam.unproject(uv2, z2s) - t2_arr)
+            X = np.where(use1[:, None], X1, np.where(use2[:, None], X2, X))
 
         def rays(uv):
             return np.stack([(uv[:, 0] - cam.cx) / cam.fx, (uv[:, 1] - cam.cy) / cam.fy, np.ones(C)], axis=1)
@@ -612,7 +644,7 @@ class LocalMapping:
         cam = self.camera
         res = ba_solve_wire(
             torch.as_tensor(wire, device=self.device), [cam.fx, cam.fy, cam.cx, cam.cy],
-            0.0, K=K, P=P, O=O, MOPP=mopp,
+            self.bf, K=K, P=P, O=O, MOPP=mopp,
         )
         self._pending_ba = {
             "res": res, "done": self._record_done(res), "shape": (K, P, O),
@@ -705,7 +737,7 @@ class LocalMapping:
         cam = self.camera
         out = mapper_step_wire(
             torch.as_tensor(tri_wire, device=self.device), torch.as_tensor(ba_wire, device=self.device),
-            [cam.fx, cam.fy, cam.cx, cam.cy], 0.0,
+            [cam.fx, cam.fy, cam.cx, cam.cy], self.bf,
             C=size["C"], K=size["K"], P=size["P"], O=size["O"],
         )
         self.n_standalone_jobs += 1

@@ -185,7 +185,7 @@ class KeyFrame:
     __slots__ = (
         "id", "frame_id", "timestamp", "R", "t", "track_ids", "pts", "_desc", "_desc_thunk",
         "mp_ids", "image", "covis", "parent", "children", "bad",
-        "map_id", "prev_kf", "next_kf", "Tcp",
+        "map_id", "prev_kf", "next_kf", "depth_right", "uright", "Tcp",
     )
 
     _next_id = itertools.count()
@@ -231,6 +231,9 @@ class KeyFrame:
         self.map_id = map_id
         self.prev_kf = None
         self.next_kf = None
+        # stereo: per-slot depth and right-image u (-1 = none), None for mono
+        self.depth_right = frame.depth_right.copy() if frame.depth_right is not None else None
+        self.uright = frame.uright.copy() if frame.uright is not None else None
         # Pose relative to parent at cull time (the reference's mTcp,
         # KeyFrame::SetBadFlag): lets trajectory savers recover culled KF
         # poses through the parent chain (System.cc:760-766).

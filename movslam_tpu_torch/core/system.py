@@ -1,15 +1,19 @@
-"""System: the public SLAM facade of the port (monocular).
+"""System: the public SLAM facade of the port (monocular and stereo).
 
-Port of the monocular drives of movslam_tpu/core/system.py
-(System.h:96-189): `System(settings, MONOCULAR, device=...)`, then either
-`track_monocular(timestamp, smv)` per frame or
-`track_monocular_batch(items, flush=)` for the windowed drive, `shutdown()`
-and the trajectory savers. Device work runs on `device` ("cuda" on the card;
-"cpu" for the tests) — a CUDA request without a card raises.
+Port of the monocular and stereo drives of movslam_tpu/core/system.py
+(System.h:96-189): `System(settings, MONOCULAR | STEREO, device=...)`, then
+either `track_monocular(timestamp, smv)` / `track_stereo(timestamp, left,
+right)` per frame or `track_monocular_batch(items, flush=)` /
+`track_stereo_batch(items, flush=)` for the windowed drive, `shutdown()` and
+the trajectory savers. `activate_localization_mode()` freezes the map. Device
+work runs on `device` ("cuda" on the card; "cpu" for the tests) — a CUDA
+request without a card raises.
 
 Per frame: in the OK state a P-frame runs the whole per-frame program
 (ops/frame_step) and the host replays its int32 wire; initialization, loss
 and I-frames take the per-stage path (extractor, then Tracking.grab_frame).
+A stereo frame always takes the per-stage path, with its depth from
+core/stereo.py; inside a window the depth comes from the frame program.
 
 Windowed: runs of OK-state P-frames go W at a time through the window
 program (ops/window_step) against one frozen snapshot; up to
@@ -20,8 +24,8 @@ triangulation and local BA to the next window program (core/local_mapping
 deferred mode); a replay that ends a window early rewinds the track state
 on the device and feeds the remaining frames again.
 
-Not part of this slice (ROADMAP Queue 1): stereo, visual-inertial,
-localization mode, global BA and atlas checkpoints.
+Not ported yet (ROADMAP Queue 1): visual-inertial, global BA, map merge and
+atlas checkpoints.
 """
 from __future__ import annotations
 
@@ -43,6 +47,8 @@ from .frame import Frame
 from .local_mapping import LocalMapping
 from .map import Atlas
 from .snapshot import MapSnapshot, build_snapshot
+from .stereo import compute_stereo_depth
+from .stereo_rectified import rectify_pair
 from .tracking import State, Tracking
 from .trackstate import TrackState
 from .verbose import Verbose
@@ -54,18 +60,19 @@ class System:
     IMU_MONOCULAR = IMU_MONOCULAR
 
     def __init__(self, settings, sensor=MONOCULAR, device="cuda", async_mapping=False):
-        if sensor != MONOCULAR:
-            raise NotImplementedError(
-                "stereo and visual-inertial sensors: ROADMAP Queue 1, stereo / VI slices"
-            )
+        if sensor not in (MONOCULAR, STEREO):
+            raise NotImplementedError("visual-inertial sensors: ROADMAP Queue 1, VI slice")
         self.device = resolve_device(device)
         self.settings = settings if isinstance(settings, Settings) else Settings.from_yaml(settings, sensor)
         self.sensor = sensor
-        Verbose.log("Input sensor set to: Monocular")
+        Verbose.log("Input sensor set to: " + ("Stereo" if sensor == STEREO else "Monocular"))
         cam = self.settings.camera1
         self.atlas = Atlas()
         self.atlas.add_camera(cam)
-        self.mapper = LocalMapping(self.atlas, cam, self.device, far_points=self.settings.th_far_points)
+        self.mapper = LocalMapping(
+            self.atlas, cam, self.device, monocular=(sensor != STEREO),
+            far_points=self.settings.th_far_points, bf=self.settings.bf, stereo_b=self.settings.b,
+        )
         self.extractor = MOVExtractor(
             threshold=self.settings.threshold,
             coverage_threshold=self.settings.coverage_threshold,
@@ -82,7 +89,8 @@ class System:
         self._has_dist = bool(cam.dist and any(cam.dist))
         d = (list(cam.dist) + [0.0] * 5)[:5]
         self._dist_pack = torch.tensor(
-            d + list(cam.undistorted_bounds()) + [0.0], dtype=torch.float32, device=self.device
+            d + list(cam.undistorted_bounds()) + [self.settings.bf], dtype=torch.float32,
+            device=self.device,
         )
         self.image_count = 0
         self.track_ms = []
@@ -238,24 +246,35 @@ class System:
                 self.mapper.tick()
                 self.counts["per_frame_p"] += 1
         if not fused_done:
-            reloc = None
-            if tr.last_frame is not None and tr.last_frame.lost and tr.state == State.RECENTLY_LOST:
-                reloc = self._build_reloc()
-            if smv.ft != FrameType.I_FRAME and self._prev_state is not None:
-                self.counts["per_frame_p"] += 1
-            state = self.extractor.extract(smv, self._prev_state, self._prev_img, reloc, img_dev=img_dev)
-            frame = Frame(state, timestamp=timestamp, image=smv.im_gray, fid=self.image_count,
-                          camera=self.settings.camera1)
-            self._prev_state = state
-            self._prev_img = img_dev
-            self.mapper.tick()
-            tr.grab_frame(frame)
+            self._track_per_stage(timestamp, smv, img_dev)
+        return self._frame_done(t0)
 
+    def _track_per_stage(self, timestamp, smv, img_dev, smv_right=None):
+        """The per-stage path: extractor (with the LK recovery inputs after a
+        loss), stereo depth when there is a right frame, then
+        Tracking.grab_frame."""
+        tr = self.tracking
+        reloc = None
+        if tr.last_frame is not None and tr.last_frame.lost and tr.state == State.RECENTLY_LOST:
+            reloc = self._build_reloc()
+        if smv.ft != FrameType.I_FRAME and self._prev_state is not None:
+            self.counts["per_frame_p"] += 1
+        state = self.extractor.extract(smv, self._prev_state, self._prev_img, reloc, img_dev=img_dev)
+        frame = Frame(state, timestamp=timestamp, image=smv.im_gray, fid=self.image_count,
+                      camera=self.settings.camera1)
+        if smv_right is not None:
+            compute_stereo_depth(frame, img_dev, smv_right.im_gray, self.settings, self.device)
+        self._prev_state = state
+        self._prev_img = img_dev
+        self.mapper.tick()
+        tr.grab_frame(frame)
+
+    def _frame_done(self, t0):
+        """Count the frame and return its pose, (R, t) or None."""
         self.image_count += 1
         self.track_ms.append(1e3 * (time.perf_counter() - t0))
-        if tr.current is not None and tr.current.pose_set:
-            return tr.current.R, tr.current.t
-        return None
+        cur = self.tracking.current
+        return (cur.R, cur.t) if cur is not None and cur.pose_set else None
 
     # --- windowed drive (W frames per window program) ----------------------
     def _patch_inputs(self, snap):
@@ -317,7 +336,15 @@ class System:
         return self._batch_drive([it[:2] for it in items], flush, per_frame=self.track_monocular)
 
     def track_stereo_batch(self, items, flush=True):
-        raise NotImplementedError("stereo windows: ROADMAP Queue 1, stereo slice")
+        """Track a batch of (timestamp, smv_left, smv_right) triples: the
+        windowed drive of track_monocular_batch with the right-image stack in
+        every window and the stereo depth computed inside the window program
+        (ops/frame_step stage 1c). A raw rig's pairs are rectified first."""
+        if self.sensor != STEREO:
+            raise ValueError("sensor not set to Stereo")
+        if self.settings.need_rectify:
+            items = [(it[0], *rectify_pair(it[1], it[2], self.settings)) for it in items]
+        return self._batch_drive([it[:3] for it in items], flush, per_frame=self.track_stereo)
 
     def _rewind(self, wf, consumed):
         """After an unclean replay every later window chained on a carry that
@@ -478,10 +505,14 @@ class System:
         image and state: the entry after per-frame tracking). carry=<an
         in-flight window record> chains on that window's device-resident
         outputs (state, pose_carry) without pulling them. Returns the
-        in-flight record, or None when there is no map snapshot yet."""
+        in-flight record, or None when there is no map snapshot yet.
+
+        run items are (ts, smv) for mono and (ts, smv, smv_right) for stereo:
+        a stereo window adds the right-image stack."""
         prof = self._prof
         _t = time.perf_counter
         t0 = _t()
+        stereo = len(run[0]) == 3
         tr = self.tracking
         if tr.reference_kf is None:  # no snapshot without a reference keyframe
             return None
@@ -498,8 +529,8 @@ class System:
         self.mapper.busy_frames = 3 if self.atlas.current.n_keyframes() < 8 else self.window
         mvks = []
         n_mvs = None
-        for _, smv in run:
-            mvk, m = smv.packed_joint_i16()
+        for it in run:
+            mvk, m = it[1].packed_joint_i16()
             mvks.append(mvk)
             n_mvs = m if n_mvs is None else n_mvs
             if m != n_mvs:
@@ -508,7 +539,10 @@ class System:
             prof["disp_pack_host"] += _t() - t0
             t0 = _t()
         mvk_stack = torch.as_tensor(np.stack(mvks), device=self.device)
-        imgs_dev = torch.as_tensor(np.stack([smv.im_gray for _, smv in run]), device=self.device)
+        imgs_dev = torch.as_tensor(np.stack([it[1].im_gray for it in run]), device=self.device)
+        imgs_right = None
+        if stereo:
+            imgs_right = torch.as_tensor(np.stack([it[2].im_gray for it in run]), device=self.device)
         if prof is not None:
             prof["disp_upload"] += _t() - t0
             t0 = _t()
@@ -563,12 +597,13 @@ class System:
 
         out = tracked_window_step(
             imgs_dev, prev_img, prev_state, mvk_stack, pose_pack, snap.fused, tr.intr, tr.sampler,
-            self._dist_pack, patch_tri=patch_tri, patch_mp=patch_mp, patch_meta=patch_meta,
+            self._dist_pack, imgs_right, patch_tri=patch_tri, patch_mp=patch_mp, patch_meta=patch_meta,
             mtri=mtri, mba=mba, n_mvs=n_mvs,
             reproj_err=float(self.settings.reprojection_error),
             threshold=float(self.extractor.threshold),
             coverage_threshold=float(self.extractor.coverage_threshold),
             capacity=self.extractor.capacity, max_cov=MAX_COV, has_dist=self._has_dist,
+            has_stereo=stereo,
         )
         if prof is not None:
             prof["disp_jit_call"] += _t() - t0
@@ -596,7 +631,7 @@ class System:
             prof["disp_tail"] += _t() - t0
         return {
             "out": out, "run": run, "snap": snap, "imgs_dev": imgs_dev, "n_mvs": n_mvs,
-            "patch_job": patch_job, "fused_job": staged,
+            "patch_job": patch_job, "fused_job": staged, "stereo": stereo,
             "sched_exit": (start + len(run), cool_x, lastkf_x),
         }
 
@@ -609,6 +644,7 @@ class System:
         _t = time.perf_counter
         t0 = _t()
         out, run, snap, imgs_dev = wf["out"], wf["run"], wf["snap"], wf["imgs_dev"]
+        stereo = wf["stereo"]
         W = len(run)
         tr = self.tracking
         wire = out["wire"].cpu().numpy()
@@ -642,7 +678,7 @@ class System:
             snap = MapSnapshot(snap.fused, list(snap.mps) + ext, version=snap.version,
                                obs_pos=np.concatenate([snap.obs_pos, obs_ext]))
 
-        C = packed_cols(self._has_dist)
+        C = packed_cols(self._has_dist, stereo)
         N = self.extractor.capacity
         P = snap.fused.shape[0]
         o1 = W * N * C
@@ -658,10 +694,10 @@ class System:
         consumed = 0
         rewound = False
         for k in range(W):
-            ts, smv = run[k]
+            ts, smv = run[k][:2]
             scal = scal_w[k]
             frame = Frame.from_packed(packed_w[k], timestamp=ts, image=smv.im_gray,
-                                      fid=self.image_count, has_dist=self._has_dist)
+                                      fid=self.image_count, has_dist=self._has_dist, stereo=stereo)
             pose = np.ascontiguousarray(scal[0:12]).view(np.float32)
             host_out = {
                 "R": pose[0:9].reshape(3, 3).astype(np.float64),
@@ -697,13 +733,13 @@ class System:
                     )
                 if prof is not None:
                     prof["n_kf_last" if k == W - 1 else "n_kf_mid"] += 1
-                # Young maps always rewind (stale-snapshot frames degrade the
-                # gauge while it is still forming). A mature map keeps
+                # Stereo and young maps always rewind (stale-snapshot frames
+                # degrade the gauge while it is still forming). A mature map keeps
                 # consuming: windows are keyframe-ALIGNED, so a mid-window
                 # keyframe only follows a schedule miss, and the stale rest
                 # is tolerated unless the very next frame is already near
                 # the loss gate (30 local-map inliers, Tracking.cc:930).
-                if k + 1 < W and (n_kfs < 10 or int(scal_w[k + 1, 13]) < th_margin):
+                if k + 1 < W and (stereo or n_kfs < 10 or int(scal_w[k + 1, 13]) < th_margin):
                     rewound = True
                     break
             elif (
@@ -750,10 +786,27 @@ class System:
             if not clean:
                 pend[:0] = self._rewind(wf, consumed)
         for it in pend:
-            self.track_monocular(*it)
+            if len(it) == 3:
+                self.track_stereo(*it)
+            else:
+                self.track_monocular(*it)
 
     def track_stereo(self, timestamp, smv, smv_right):
-        raise NotImplementedError("stereo tracking: ROADMAP Queue 1, stereo slice")
+        """System::TrackStereo (System.cc:236-300): the per-stage path on the
+        left frame, stereo depth from a left->right LK (core/stereo.py), then
+        the state machine. Returns (R, t) or None."""
+        if self.sensor != STEREO:
+            raise ValueError("sensor not set to Stereo")
+        self._flush_windows()
+        if self.settings.need_rectify:
+            smv, smv_right = rectify_pair(smv, smv_right, self.settings)
+        t0 = time.perf_counter()
+        if self._reset_requested:
+            self._prev_state = None
+            self._snapshot = None
+            self._reset_requested = False
+        self._track_per_stage(timestamp, smv, torch.as_tensor(smv.im_gray, device=self.device), smv_right)
+        return self._frame_done(t0)
 
     def global_bundle_adjustment(self, iters=20, mesh=None):
         raise NotImplementedError("global BA: ROADMAP Queue 1, pose graph / map merge / global BA slice")
@@ -765,7 +818,26 @@ class System:
         self._reset_requested = True
 
     def activate_localization_mode(self):
-        raise NotImplementedError("localization mode (only_tracking): ROADMAP Queue 1, localization slice")
+        """System::ActivateLocalizationMode (System.h:118-121, System.cc:171-234):
+        freeze mapping and track against the frozen map, with no keyframes,
+        triangulation, BA or new-map recovery. Everything in flight lands
+        first: the windows, the queued keyframes, the staged and launched
+        mapper jobs and the pending BA."""
+        self._flush_windows()
+        if self.async_mapping:
+            self.mapper.wait_idle()
+        self.mapper.spin(final=True)
+        self.mapper.dispatch_staged_async()
+        self.mapper.poke_commit(blocking=True)
+        self.tracking.only_tracking = True
+
+    def deactivate_localization_mode(self):
+        """System::DeactivateLocalizationMode: resume mapping."""
+        self._flush_windows()
+        self.tracking.only_tracking = False
+
+    def localization_mode_active(self):
+        return self.tracking.only_tracking
 
     def shutdown(self):
         self._flush_windows()

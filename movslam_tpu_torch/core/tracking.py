@@ -1,4 +1,4 @@
-"""Tracking: the per-frame front-end state machine (monocular).
+"""Tracking: the per-frame front-end state machine (monocular and stereo).
 
 Port of movslam_tpu/core/tracking.py, which mirrors Tracking.cc:215-518 —
 {NO_IMAGES_YET, NOT_INITIALIZED, OK, RECENTLY_LOST, LOST} with two-view
@@ -8,8 +8,8 @@ ops/pnp.py on the system's device; matching is the reference's host-only
 track-id join (movslam_tpu/core/matcher.py). RANSAC draws come from one
 torch.Generator seeded like the reference's PRNGKey(7). Both drives end in
 `track_fused`: the per-frame program's result, or one frame of a replayed
-window. Stereo initialization and localization-only mode are not part of
-this slice.
+window. In localization-only mode (`only_tracking`) the map is frozen: no
+keyframes, no reset, no new map after a loss.
 """
 from __future__ import annotations
 
@@ -22,6 +22,7 @@ import torch
 from ..ops.ba import ba_solve, build_obs_by_point
 from ..ops.pnp import make_sampler, pnp_ransac_fused
 from ..ops.twoview import reconstruct_two_views
+from ..config.settings import STEREO
 from .map import KeyFrame, MapPoint
 from .matcher import (
     search_by_video_feature_kf,
@@ -55,8 +56,9 @@ class Tracking:
         self.last_ref_track_count = 0
         self.max_frames = int(settings.fps / 2)
         self.min_frames = 0
-        # Localization mode (System.h:118-121) is ROADMAP Queue 1 work; the
-        # windowed drive's scheduler already reads the flag.
+        # Localization-only mode (System::ActivateLocalizationMode,
+        # System.cc:171-234, System.h:118-121): track against the frozen map,
+        # with no keyframes, no map mutation and no new map after a loss.
         self.only_tracking = False
 
         self.current = None
@@ -101,7 +103,10 @@ class Tracking:
             self.state = State.NOT_INITIALIZED
 
         if self.state == State.NOT_INITIALIZED:
-            self._monocular_initialization()
+            if self.settings.sensor == STEREO:
+                self._stereo_initialization()
+            else:
+                self._monocular_initialization()
             if self.state != State.OK:
                 self.last_frame = self.current
                 return
@@ -124,6 +129,9 @@ class Tracking:
                     self.state = State.LOST
                     ok = False
             if self.state == State.LOST:
+                if self.only_tracking:
+                    self._stay_recently_lost()
+                    return
                 if m.n_keyframes() < 10:
                     self.system.reset_active_map()
                 else:
@@ -138,6 +146,13 @@ class Tracking:
             if self.state == State.LOST or self.current is None:
                 return
         self._log_trajectory()
+
+    def _stay_recently_lost(self):
+        """A loss on a frozen map: never reset it nor open a new one; stay
+        RECENTLY_LOST and keep retrying."""
+        self.state = State.RECENTLY_LOST
+        self.current.lost = True
+        self.last_frame = self.current
 
     def _post_tracking_tail(self, ok, m):
         """State update, motion model, VO-match cleanup, keyframe decision
@@ -160,7 +175,7 @@ class Tracking:
                     if mp is not None and mp.n_obs() < 1:
                         cur.outlier[i] = False
                         cur._mappoints[i] = None
-            if self._need_new_keyframe() and ok:
+            if not self.only_tracking and self._need_new_keyframe() and ok:
                 self._create_new_keyframe()
             # Drop outliers so the next frame won't use them (:459-463).
             if cur._mappoints is not None:
@@ -173,6 +188,9 @@ class Tracking:
                 cur.outlier = np.zeros(cur.n, bool)
 
         if self.state == State.LOST:
+            if self.only_tracking:
+                self._stay_recently_lost()
+                return
             if m.n_keyframes() <= 10:
                 self.system.reset_active_map()
                 self.current = None
@@ -220,7 +238,7 @@ class Tracking:
 
             if not (bool(out["ok"]) and int(out["n_ref_inliers"]) >= 10):
                 # TrackReferenceKeyFrame failed (Tracking.cc:325-337).
-                if m.n_keyframes() > 10:
+                if m.n_keyframes() > 10 or self.only_tracking:
                     self.state = State.RECENTLY_LOST
                     self.ts_lost = frame.timestamp
                 else:
@@ -398,6 +416,39 @@ class Tracking:
             mp.pos = X[j]
             mp.update_normal_and_depth(m)
 
+    def _stereo_initialization(self):
+        """Tracking::StereoInitialization (Tracking.cc:520-573): one keyframe
+        at the origin, a map point for every slot with a stereo depth."""
+        cur = self.current
+        if cur.n <= 500:
+            return
+        m = self.atlas.current
+        cur.set_pose(np.eye(3), np.zeros(3))
+        kf = KeyFrame(cur, m.id)
+        m.add_keyframe(kf)
+        cam = self.camera
+        for i in range(cur.n):
+            z = cur.depth_right[i] if cur.depth_right is not None else -1
+            if z <= 0:
+                continue
+            mp = MapPoint(cam.unproject(cur.pts[i], z), kf.id, int(cur.track_ids[i]), m.id)
+            mp.add_observation(kf, i)
+            kf.add_mappoint(mp, i)
+            mp.update_normal_and_depth(m)
+            m.add_mappoint(mp)
+            cur.mappoints[i] = mp
+        self.mapper.insert_keyframe(kf)
+        self.mapper.spin()
+        self.last_frame = cur
+        self.last_kf_frame_id = cur.id
+        self.last_kf = kf
+        self.local_kfs = [kf]
+        self.local_mps = [mp for mp in m.mappoints.values() if not mp.bad]
+        self.reference_kf = kf
+        cur.reference_kf = kf
+        m.kf_origins.append(kf)
+        self.state = State.OK
+
     # --- per-stage tracking (init, loss and I-frames) ------------------------
     def _check_replaced_in_last_frame(self):
         for i, mp in enumerate(self.last_frame.mappoints):
@@ -411,10 +462,16 @@ class Tracking:
             return 0
         cap = 2048
         n = min(len(slots), cap)
-        data = np.zeros((cap, 6), np.float32)
+        # Stereo rows (ur) join the per-frame solve when there are any (the
+        # C++ reference keeps its pose solve mono, Optimizer.cc:437).
+        stereo = frame.uright is not None and self.settings.bf > 0
+        data = np.zeros((cap, 7 if stereo else 6), np.float32)
         data[:n, 0:3] = np.stack([frame.mappoints[s].pos for s in slots[:n]])
         data[:n, 3:5] = frame.pts[slots[:n]]
         data[:n, 5] = 1.0
+        if stereo:
+            data[:, 6] = -1.0
+            data[:n, 6] = frame.uright[slots[:n]]
         rep = self.settings.reprojection_error_lost if lost else self.settings.reprojection_error
         prior = np.zeros((4, 3), np.float32)
         prior[:3] = frame.R if frame.pose_set else np.eye(3)
@@ -422,6 +479,7 @@ class Tracking:
         res = pnp_ransac_fused(
             torch.as_tensor(data, device=self.device), torch.as_tensor(prior, device=self.device),
             self.intr.tolist(), float(rep), self.sampler,
+            bf=float(self.settings.bf), stereo=stereo,
         )
         if not bool(res["ok"]):
             return 0
@@ -598,7 +656,7 @@ class Tracking:
         return (c1a or c1b) and self.matches_inliers > 15 and idle
 
     def _create_new_keyframe(self):
-        """Tracking::CreateNewKeyFrame (Tracking.cc:993-1107), mono."""
+        """Tracking::CreateNewKeyFrame (Tracking.cc:993-1107)."""
         t0 = time.perf_counter()
         m = self.atlas.current
         snap = getattr(self.system, "_snapshot", None)
@@ -610,11 +668,38 @@ class Tracking:
         if self.last_kf is not None:
             kf.prev_kf = self.last_kf
             self.last_kf.next_kf = kf
+        if self.settings.sensor == STEREO and self.current.depth_right is not None:
+            self._create_close_stereo_points(kf, m)
         self.mapper.insert_keyframe(kf)
         self.mapper.spin()
         self.last_kf_frame_id = self.current.id
         self.last_kf = kf
         self.timings["new_kf"].append(1e3 * (time.perf_counter() - t0))
+
+    def _create_close_stereo_points(self, kf, m):
+        """Stereo keyframes spawn map points from the closest depths
+        (Tracking.cc:1015-1099): all below th_depth, and at least 100."""
+        cam = self.camera
+        cur = self.current
+        depth = cur.depth_right
+        order = np.argsort(np.where(depth > 0, depth, np.inf), kind="stable")
+        n_pts = 0
+        for i in order:
+            z = depth[i]
+            if z <= 0:
+                break
+            mp = cur.mappoints[i]
+            if mp is None or mp.n_obs() < 1:
+                x3d = cur.R.T @ (cam.unproject(cur.pts[i], z) - cur.t)
+                mp = MapPoint(x3d, kf.id, int(cur.track_ids[i]), m.id)
+                mp.add_observation(kf, int(i))
+                kf.add_mappoint(mp, int(i))
+                mp.update_normal_and_depth(m)
+                m.add_mappoint(mp)
+                cur.mappoints[i] = mp
+            n_pts += 1
+            if z > self.settings.th_depth_m and n_pts > 100:
+                break
 
     # --- resets ----------------------------------------------------------
     def _create_map_in_atlas(self):

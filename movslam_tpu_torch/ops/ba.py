@@ -1,6 +1,6 @@
 """Levenberg-Marquardt bundle adjustment with an explicit Schur complement.
 
-Port of the mono path of movslam_tpu/ops/ba.py (g2o LM + BlockSolver_6_3
+Port of movslam_tpu/ops/ba.py (g2o LM + BlockSolver_6_3
 replacement, Optimizer.cc:461-841): Huber (delta^2 = 5 px^2), 10 LM
 iterations with branchless accept/reject, landmark blocks marginalized with
 batched 3x3 inverses and a dense 6K x 6K reduced camera system solved by
@@ -24,29 +24,42 @@ def _segment_sum(x, idx, n):
     return out.index_add_(0, idx, x)
 
 
-def _residual_jacobians(kf_R, kf_t, mp_pos, obs_kf, obs_mp, obs_uv, obs_w, fx, fy, cx, cy):
-    """Per-observation mono residuals r (O, 2), pose Jacobians (O, 2, 6),
-    point Jacobians (O, 2, 3), robust weights w (O,), chi2 (O,), depth (O,)."""
+def _residual_jacobians(kf_R, kf_t, mp_pos, obs_kf, obs_mp, obs_uv, obs_w, fx, fy, cx, cy,
+                        obs_ur=None, bf=0.0):
+    """Per-observation residuals r (O, 2|3), pose Jacobians (O, 2|3, 6),
+    point Jacobians (O, 2|3, 3), robust weights w (O,), chi2 (O,), depth (O,).
+
+    Mono observations have the rows (u, v). With obs_ur (O,), stereo
+    observations (obs_ur >= 0) add the right-image column u_r = u - bf/z as a
+    third row (EdgeStereoSE3ProjectXYZ, Optimizer.cc:673-705), which is zero
+    for the mono rows among them."""
     R = kf_R[obs_kf]
     X = mp_pos[obs_mp]
     pc = (R @ X[:, :, None])[..., 0] + kf_t[obs_kf]
     z = pc[:, 2]
     iz = 1.0 / z.clamp(min=1e-6)
     x, y = pc[:, 0], pc[:, 1]
-    r = torch.stack([fx * x * iz + cx - obs_uv[:, 0], fy * y * iz + cy - obs_uv[:, 1]], dim=-1)
+    u = fx * x * iz + cx
+    rows = [u - obs_uv[:, 0], fy * y * iz + cy - obs_uv[:, 1]]
+    if obs_ur is not None:
+        stereo = (obs_ur >= 0).to(pc.dtype)
+        rows.append((u - bf * iz - obs_ur) * stereo)
+    r = torch.stack(rows, dim=-1)
     chi2 = (r * r).sum(-1)
     hub = torch.where(chi2 <= HUBER2, torch.ones_like(chi2),
                       torch.sqrt(HUBER2 / chi2.clamp(min=1e-12)))
     w = obs_w * hub * (z > 0)
     zero = torch.zeros_like(iz)
     iz2 = iz * iz
-    J_pc = torch.stack(
-        [torch.stack([fx * iz, zero, -fx * x * iz2], -1),
-         torch.stack([zero, fy * iz, -fy * y * iz2], -1)],
-        dim=1,
-    )  # (O, 2, 3)
+    jrows = [torch.stack([fx * iz, zero, -fx * x * iz2], -1),
+             torch.stack([zero, fy * iz, -fy * y * iz2], -1)]
+    if obs_ur is not None:
+        jrows.append(
+            torch.stack([fx * iz * stereo, zero, (-fx * x * iz2 + bf * iz2) * stereo], -1)
+        )
+    J_pc = torch.stack(jrows, dim=1)  # (O, 2|3, 3)
     eye = torch.eye(3, dtype=pc.dtype, device=pc.device).expand(pc.shape[0], 3, 3)
-    Jp = J_pc @ torch.cat([eye, -hat(pc)], dim=-1)  # (O, 2, 6)
+    Jp = J_pc @ torch.cat([eye, -hat(pc)], dim=-1)  # (O, 2|3, 6)
     Jl = J_pc @ R  # d(pc)/dX = R
     return r, Jp, Jl, w, chi2, z
 
@@ -85,10 +98,12 @@ def schur_reduce(W, g_p, g_l, Hpp, Hll, obs_kf, obs_mp, obs_by_point, lam, K, P,
 
 
 def ba_solve(kf_R, kf_t, kf_fixed, kf_valid, mp_pos, mp_valid, obs_kf, obs_mp, obs_uv,
-             obs_valid, obs_by_point, fx, fy, cx, cy, iters=LM_ITERS):
-    """Mono LM bundle adjustment. kf_* (K, ...); mp_pos (P, 3); obs_* (O,);
+             obs_valid, obs_by_point, fx, fy, cx, cy, obs_ur=None, bf=0.0, iters=LM_ITERS):
+    """LM bundle adjustment. kf_* (K, ...); mp_pos (P, 3); obs_* (O,);
     obs_by_point (P, MOPP) observation indices padded with O. Fixed
     keyframes contribute residuals but are not updated (g2o setFixed).
+    obs_ur (O,) is the right-image column of stereo observations (< 0 =
+    mono) and bf the rig's baseline * fx.
 
     Returns dict(kf_R, kf_t, mp_pos, chi2 (O,), depth (O,), cost)."""
     K, P, O = kf_R.shape[0], mp_pos.shape[0], obs_kf.shape[0]
@@ -101,7 +116,7 @@ def ba_solve(kf_R, kf_t, kf_fixed, kf_valid, mp_pos, mp_valid, obs_kf, obs_mp, o
     eye = torch.eye(K * 6, dtype=mp_pos.dtype, device=mp_pos.device)
 
     def linearize(R, t, X):
-        r, Jp, Jl, w, chi2, z = _residual_jacobians(R, t, X, obs_kf, obs_mp, obs_uv, obs_w, fx, fy, cx, cy)
+        r, Jp, Jl, w, chi2, z = _residual_jacobians(R, t, X, obs_kf, obs_mp, obs_uv, obs_w, fx, fy, cx, cy, obs_ur, bf)
         Jp = Jp * free_obs
         Jpw = Jp * w[:, None, None]
         Jlw = Jl * w[:, None, None]
@@ -152,16 +167,16 @@ def ba_solve_packed(kf_pack, mp_pack, obs_pack, obs_by_point, intr, bf, iters=LM
     intr    : fx fy cx cy, as host floats or a (4,) tensor on the same device
 
     Returns (out_kf (K, 12) [R t], out_mp (P, 3), out_obs (O, 2) [chi2
-    depth]). Mono only: stereo rows (ur >= 0) and bf != 0 are ROADMAP
-    Queue 1 "stereo" work and raise."""
-    if bf:
-        raise NotImplementedError("stereo BA (bf != 0): ROADMAP Queue 1, stereo slice")
+    depth]). bf is a host float or a 0-d tensor; with a host 0 (a monocular
+    rig, whose rows all carry ur = -1) the third residual row is left out."""
+    mono = isinstance(bf, (int, float)) and bf == 0
     K = kf_pack.shape[0]
     res = ba_solve(
         kf_pack[:, 0:9].reshape(K, 3, 3), kf_pack[:, 9:12], kf_pack[:, 12] > 0, kf_pack[:, 13] > 0,
         mp_pack[:, 0:3], mp_pack[:, 3] > 0, obs_pack[:, 0].to(torch.int64),
         obs_pack[:, 1].to(torch.int64), obs_pack[:, 2:4], obs_pack[:, 5] > 0,
-        obs_by_point.to(torch.int64), intr[0], intr[1], intr[2], intr[3], iters=iters,
+        obs_by_point.to(torch.int64), intr[0], intr[1], intr[2], intr[3],
+        obs_ur=None if mono else obs_pack[:, 4], bf=bf, iters=iters,
     )
     out_kf = torch.cat([res["kf_R"].reshape(K, 9), res["kf_t"]], dim=1)
     return out_kf, res["mp_pos"], torch.stack([res["chi2"], res["depth"]], dim=1)

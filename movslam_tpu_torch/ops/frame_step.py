@@ -1,15 +1,17 @@
 """Per-frame tracking program: extraction -> snapshot join -> two PnP stages
 -> int32 result wire.
 
-Port of movslam_tpu/ops/frame_step.py (mono, optional keypoint
-undistortion; stereo depth is ROADMAP Queue 1 "stereo" work). The wire
+Port of movslam_tpu/ops/frame_step.py (optional keypoint undistortion,
+optional stereo depth from a left->right LK inside the program). The wire
 layout is the reference's, word for word, so the two can be diffed:
 
-    wire = packed (N, 3|4) i32 | 16 scalars | P/32 visibility words
+    wire = packed (N, 3..6) i32 | 16 scalars | P/32 visibility words
     packed word 0: pt as 2 x i16 in 1/32-px fixed point
            word 1: track id
            word 2: meta = age (12 b) | midx + 1 (13 b) | flags (4 b)
-          [word 3: undistorted pt, 2 x i16 1/32 px, when has_dist]
+          [+1 word: undistorted pt, 2 x i16 1/32 px, when has_dist]
+          [+2 words: stereo depth and right-image u as f32 BIT PATTERNS,
+           -1.0 = none, when has_stereo]
     scalars: R (9) t (3) as f32 bits | n_ref | n_inliers | ok | next_id
 """
 from __future__ import annotations
@@ -19,6 +21,7 @@ import torch
 
 from ..core.trackstate import TrackState
 from ..device import wrap_i32
+from .lk import lk_track
 from .pnp import pnp_ransac
 
 SNAP_CAP = 4096  # map-snapshot capacity (points)
@@ -26,9 +29,9 @@ N_SCALARS = 16
 PT_FIX = 32.0  # wire fixed-point scale for pixel coords (1/32 px)
 
 
-def packed_cols(has_dist=False):
-    """Per-slot wire width in int32 words (mono)."""
-    return 3 + (1 if has_dist else 0)
+def packed_cols(has_dist=False, has_stereo=False):
+    """Per-slot wire width in int32 words."""
+    return 3 + (1 if has_dist else 0) + (2 if has_stereo else 0)
 
 
 def pack_pt_i32(pt):
@@ -123,16 +126,18 @@ def _project_gate(R, t, pos, intr, bounds, normal, mind, maxd):
 
 def _frame_program_body(
     img, prev_img, prev_state, mv_pack, kps_pack, coverage_area, prior_R, prior_t,
-    snap, intr, sampler, dist_pack=None, *, reproj_err, threshold,
-    coverage_threshold, capacity, max_cov, has_dist=False,
+    snap, intr, sampler, dist_pack=None, img_right=None, *, reproj_err, threshold,
+    coverage_threshold, capacity, max_cov, has_dist=False, has_stereo=False,
 ):
     """Stages 1-5 of the per-frame program, shared by tracked_frame_step and
     window_step.tracked_window_step. `snap` is a prepared snapshot
     (prep_snapshot's tuple): the window program sorts once per window, after
     its device-side patch. `sampler` draws the RANSAC samples of stage 1,
-    then of stage 2. Returns (state, packed, scalars, snap_visible, R2, t2,
-    chain_ok), where chain_ok is the host gate that advances the pose chain
-    (res2.ok and n_ref >= 10, core/tracking.py track_fused)."""
+    then of stage 2. With has_stereo, img_right is the rectified right image
+    and dist_pack[9] the rig's bf. Returns (state, packed, scalars,
+    snap_visible, R2, t2, chain_ok), where chain_ok is the host gate that
+    advances the pose chain (res2.ok and n_ref >= 10, core/tracking.py
+    track_fused)."""
     from ..core.extractor import _p_frame_body
 
     H, W = img.shape
@@ -156,6 +161,25 @@ def _frame_program_body(
     )
     pt_un = undistort_points(state.pt, intr, dist_pack) if has_dist else state.pt
 
+    # --- 1c. stereo depth: left->right LK, epipolar and disparity gates, and
+    # a median-distance trim (Frame::ComputeStereoMatches, Frame.cc:281-354)
+    if has_stereo:
+        bf = dist_pack[9]
+        lk_r, st_ok = lk_track(img, img_right, state.pt, state.valid)
+        dy = (lk_r[:, 1] - state.pt[:, 1]).abs()
+        disp = state.pt[:, 0] - lk_r[:, 0]
+        good = st_ok & state.valid & (dy < 2.0) & (disp > 0.1) & (disp < bf)
+        none = torch.full_like(disp, -1.0)
+        depth = torch.where(good, bf / disp.clamp(min=0.1), none)
+        # masked lower median: the sort pads with inf, so n_good == 0 reads inf
+        dsort = torch.sort(torch.where(good, depth, torch.full_like(depth, torch.inf)),
+                           stable=True).values
+        n_good = good.sum()
+        med = dsort[(n_good - 1).clamp(min=0) // 2]
+        good = good & ((depth < 6.0 * med) | (n_good <= 10))
+        depth = torch.where(good, depth, none)
+        ur = torch.where(good, lk_r[:, 0], none)
+
     # --- 2. map association by track id -------------------------------------
     midx = match_snapshot(state.track_id, state.valid, snap_tid_sorted, snap_perm, snap_valid)
     msafe = midx.clamp(min=0)
@@ -167,8 +191,11 @@ def _frame_program_body(
     _, gate_prior = _project_gate(prior_R, prior_t, mpos, intr, bounds, nrm, mind, maxd)
     matched = midx >= 0
     is_ref = snap_ref_mask[msafe] & matched
+    stereo_kw = {}
+    if has_stereo:
+        stereo_kw = {"ur": torch.where(matched, ur, none), "bf": bf}
     res1 = pnp_ransac(mpos, pt_un, is_ref & gate_prior, fx, fy, cx, cy, reproj_err,
-                      prior_R, prior_t, sampler)
+                      prior_R, prior_t, sampler, **stereo_kw)
     n_ref = res1["n_inliers"]
     R1 = torch.where(res1["ok"], res1["R"], prior_R)
     t1 = torch.where(res1["ok"], res1["t"], prior_t)
@@ -180,7 +207,8 @@ def _frame_program_body(
     # matched or not, Tracking.cc:1143-1147).
     _, snap_visible = _project_gate(R1, t1, snap_pos, intr, bounds, snap_normal, snap_mind, snap_maxd)
     snap_visible = snap_visible & snap_valid
-    res2 = pnp_ransac(mpos, pt_un, use2, fx, fy, cx, cy, reproj_err, R1, t1, sampler)
+    res2 = pnp_ransac(mpos, pt_un, use2, fx, fy, cx, cy, reproj_err, R1, t1, sampler,
+                      **stereo_kw)
 
     # --- 5. int32 wire -------------------------------------------------------
     i32 = lambda b: b.to(torch.int32)  # noqa: E731
@@ -189,6 +217,9 @@ def _frame_program_body(
     cols = [pack_pt_i32(state.pt), state.track_id, meta]
     if has_dist:
         cols.append(pack_pt_i32(pt_un))
+    if has_stereo:
+        # f32 bit patterns: a view, never an arithmetic cast
+        cols += [depth.contiguous().view(torch.int32), ur.contiguous().view(torch.int32)]
     packed = torch.stack(cols, dim=1)
     pose = torch.cat([res2["R"].reshape(-1), res2["t"]]).contiguous().view(torch.int32)
     scalars = torch.cat([
@@ -201,8 +232,8 @@ def _frame_program_body(
 
 def tracked_frame_step(
     img, prev_img, prev_state: TrackState, mvk_pack, snap_fused, intr, sampler,
-    dist_pack=None, *, n_mvs, reproj_err, threshold, coverage_threshold, capacity,
-    max_cov, has_dist=False,
+    dist_pack=None, img_right=None, *, n_mvs, reproj_err, threshold, coverage_threshold,
+    capacity, max_cov, has_dist=False, has_stereo=False,
 ):
     """One frame of tracking. mvk_pack is MotionVectorImage.packed_joint()
     plus two trailer rows carrying [prior_R (9), prior_t (3), coverage_area].
@@ -212,8 +243,9 @@ def tracked_frame_step(
     state, packed, scalars, snap_visible, _, _, _ = _frame_program_body(
         img, prev_img, prev_state, mvk_pack[:n_mvs], mvk_pack[n_mvs:, 0:5], aux[12],
         aux[0:9].reshape(3, 3), aux[9:12], prep_snapshot(snap_fused), intr, sampler, dist_pack,
-        reproj_err=reproj_err, threshold=threshold, coverage_threshold=coverage_threshold,
-        capacity=capacity, max_cov=max_cov, has_dist=has_dist,
+        img_right, reproj_err=reproj_err, threshold=threshold,
+        coverage_threshold=coverage_threshold, capacity=capacity, max_cov=max_cov,
+        has_dist=has_dist, has_stereo=has_stereo,
     )
     wire = torch.cat([packed.reshape(-1), scalars, pack_bits_i32(snap_visible)])
     return {"state": state, "wire": wire, "packed": packed, "scalars": scalars,

@@ -1,4 +1,4 @@
-"""Batched RANSAC PnP + Huber Gauss-Newton polish (mono).
+"""Batched RANSAC PnP + Huber Gauss-Newton polish (mono and stereo rows).
 
 Port of movslam_tpu/ops/pnp.py (cv::solvePnPRansac replacement,
 Optimizer.cc:397-459): a fixed block of 6-point DLT hypotheses plus the
@@ -68,42 +68,60 @@ def _dlt_pose(pw, rays):
     return project_to_so3(Pn[:, :, :3]), Pn[:, :, 3]
 
 
-def _reproj_err2(R, t, pw, uv, fx, fy, cx, cy):
+def _reproj_err2(R, t, pw, uv, fx, fy, cx, cy, ur=None, bf=0.0):
     """Squared pixel reprojection errors: R (B,3,3), t (B,3) -> (B, N).
-    Non-finite errors and points behind the camera score 1e12 so a NaN lane
-    never wins the MSAC argmin."""
+    With ur (N,), stereo rows (ur >= 0) add the right-image column residual
+    (u - bf/z - ur)^2. Non-finite errors and points behind the camera score
+    1e12 so a NaN lane never wins the MSAC argmin."""
     pc = torch.einsum("bij,nj->bni", R, pw) + t[:, None, :]
     z = pc[..., 2].clamp(min=1e-6)
-    du = fx * pc[..., 0] / z + cx - uv[:, 0]
+    u = fx * pc[..., 0] / z + cx
+    du = u - uv[:, 0]
     dv = fy * pc[..., 1] / z + cy - uv[:, 1]
     err2 = du * du + dv * dv
+    if ur is not None:
+        dr = (u - bf / z - ur) * (ur >= 0).to(err2.dtype)
+        err2 = err2 + dr * dr
     big = torch.full_like(err2, 1e12)
     err2 = torch.where(torch.isfinite(err2), err2, big)
     return torch.where(pc[..., 2] <= 0, big, err2)
 
 
-def _gn_refine(R, t, pw, uv, weight, fx, fy, cx, cy, huber_delta, iters=GN_ITERS):
+def _gn_refine(R, t, pw, uv, weight, fx, fy, cx, cy, huber_delta, iters=GN_ITERS,
+               ur=None, bf=0.0):
     """Huber-weighted Gauss-Newton pose polish, batched over lanes:
-    R (B,3,3), t (B,3), weight (B, N)."""
+    R (B,3,3), t (B,3), weight (B, N). With ur (N,), stereo rows (ur >= 0)
+    add the right-column residual as a third row."""
+    if ur is not None:
+        stereo = (ur >= 0).to(pw.dtype)
+        ur_safe = ur.clamp(min=0.0)
     eye6 = torch.eye(6, dtype=pw.dtype, device=pw.device)
     eye3 = torch.eye(3, dtype=pw.dtype, device=pw.device)
     for _ in range(iters):
         pc = torch.einsum("bij,nj->bni", R, pw) + t[:, None, :]
         iz = 1.0 / pc[..., 2].clamp(min=1e-6)
         x, y = pc[..., 0], pc[..., 1]
-        r = torch.stack([fx * x * iz + cx - uv[:, 0], fy * y * iz + cy - uv[:, 1]], dim=-1)
+        u = fx * x * iz + cx
+        rows = [u - uv[:, 0], fy * y * iz + cy - uv[:, 1]]
+        if ur is not None:
+            rows.append((u - bf * iz - ur_safe) * stereo)
+        r = torch.stack(rows, dim=-1)  # (B, N, 2|3)
         rn = torch.linalg.vector_norm(r, dim=-1)
         w = weight * torch.clamp(huber_delta / rn.clamp(min=1e-9), max=1.0)
         zero = torch.zeros_like(iz)
-        J_pc = torch.stack(
-            [
-                torch.stack([fx * iz, zero, -fx * x * iz * iz], -1),
-                torch.stack([zero, fy * iz, -fy * y * iz * iz], -1),
-            ],
-            dim=-2,
-        )  # (B, N, 2, 3)
+        jrows = [
+            torch.stack([fx * iz, zero, -fx * x * iz * iz], -1),
+            torch.stack([zero, fy * iz, -fy * y * iz * iz], -1),
+        ]
+        if ur is not None:
+            jrows.append(
+                torch.stack(
+                    [fx * iz * stereo, zero, (-fx * x * iz * iz + bf * iz * iz) * stereo], -1
+                )
+            )
+        J_pc = torch.stack(jrows, dim=-2)  # (B, N, 2|3, 3)
         J_xi = torch.cat([eye3.expand(pc.shape[:-1] + (3, 3)), -hat(pc)], dim=-1)
-        J = J_pc @ J_xi  # (B, N, 2, 6)
+        J = J_pc @ J_xi  # (B, N, 2|3, 6)
         Jw = J * w[..., None, None]
         H = torch.einsum("bnij,bnik->bjk", Jw, J) + 1e-6 * eye6
         g = torch.einsum("bnij,bni->bj", Jw, r)
@@ -112,11 +130,14 @@ def _gn_refine(R, t, pw, uv, weight, fx, fy, cx, cy, huber_delta, iters=GN_ITERS
     return R, t
 
 
-def pnp_ransac(pw, uv, valid, fx, fy, cx, cy, reproj_err, R_init, t_init, sampler):
-    """Robust mono PnP.
+def pnp_ransac(pw, uv, valid, fx, fy, cx, cy, reproj_err, R_init, t_init, sampler,
+               ur=None, bf=0.0):
+    """Robust PnP.
 
     pw (N, 3) world points; uv (N, 2) pixels; valid (N,) bool; R_init/t_init:
-    the prior pose, scored as one extra hypothesis lane.
+    the prior pose, scored as one extra hypothesis lane. ur (N,) is the
+    right-image column of stereo rows (< 0 = mono row) and bf the rig's
+    baseline * fx; both enter the scoring and the polish.
     Returns dict(R, t, inliers (N,) bool, n_inliers i32, ok bool)."""
     n_valid = valid.to(torch.int32).sum()
     order = torch.argsort((~valid).to(torch.int8), stable=True)  # valid first
@@ -129,7 +150,7 @@ def pnp_ransac(pw, uv, valid, fx, fy, cx, cy, reproj_err, R_init, t_init, sample
 
     # MSAC: truncated squared error (continuous, stable under float noise).
     thr2 = reproj_err * reproj_err
-    err2 = _reproj_err2(Rh, th, pw, uv, fx, fy, cx, cy)  # (N_HYP + 1, N)
+    err2 = _reproj_err2(Rh, th, pw, uv, fx, fy, cx, cy, ur, bf)  # (N_HYP + 1, N)
     vf = valid.to(err2.dtype)
     inl = (err2 < thr2) & valid[None, :]
     msac = (err2.clamp(max=thr2) * vf).sum(-1)
@@ -139,9 +160,9 @@ def pnp_ransac(pw, uv, valid, fx, fy, cx, cy, reproj_err, R_init, t_init, sample
     top2 = torch.argsort(msac, stable=True)[:2]
     R2, t2 = _gn_refine(
         Rh[top2], th[top2], pw, uv, inl[top2].to(pw.dtype), fx, fy, cx, cy,
-        huber_delta=math.sqrt(thr2),
+        huber_delta=math.sqrt(thr2), ur=ur, bf=bf,
     )
-    err2_r = _reproj_err2(R2, t2, pw, uv, fx, fy, cx, cy)
+    err2_r = _reproj_err2(R2, t2, pw, uv, fx, fy, cx, cy, ur, bf)
     inl_r = (err2_r < thr2) & valid[None, :]
     msac_r = (err2_r.clamp(max=thr2) * vf).sum(-1)
 
@@ -160,12 +181,13 @@ def pnp_ransac(pw, uv, valid, fx, fy, cx, cy, reproj_err, R_init, t_init, sample
     }
 
 
-def pnp_ransac_fused(data, prior, intr, reproj_err, sampler):
-    """Packed-input PnP: data (N, 6) [pw(3) uv(2) valid], prior (4, 3)
+def pnp_ransac_fused(data, prior, intr, reproj_err, sampler, bf=0.0, stereo=False):
+    """Packed-input PnP: data (N, 6|7) [pw(3) uv(2) valid (ur)], prior (4, 3)
     [R; t], intr (4,) [fx fy cx cy] (counterpart of the reference's
-    single-upload form)."""
+    single-upload form). With stereo=True column 6 carries the right-image
+    u (< 0 = mono row)."""
     fx, fy, cx, cy = (float(v) for v in intr)
     return pnp_ransac(
         data[:, 0:3], data[:, 3:5], data[:, 5] > 0, fx, fy, cx, cy, reproj_err,
-        prior[:3], prior[3], sampler,
+        prior[:3], prior[3], sampler, ur=data[:, 6] if stereo else None, bf=bf,
     )

@@ -1,6 +1,6 @@
 """Windowed tracking: W frames per call against one frozen map snapshot.
 
-Port of movslam_tpu/ops/window_step.py (mono). The decoder keeps a lookahead
+Port of movslam_tpu/ops/window_step.py. The decoder keeps a lookahead
 queue (VideoDecoder.cc:163-368), so W decoded frames are available ahead of
 the tracker; this program runs the per-frame body
 (ops/frame_step._frame_program_body) over them, carrying
@@ -73,11 +73,13 @@ def tracked_window_step(
     imgs, prev_img, prev_state, mvk_packs, pose_pack, snap_fused, intr, sampler,
     dist_pack=None, imgs_right=None, patch_tri=None, patch_mp=None, patch_meta=None,
     mtri=None, mba=None, *, n_mvs, reproj_err, threshold, coverage_threshold, capacity,
-    max_cov, has_dist=False,
+    max_cov, has_dist=False, has_stereo=False,
 ):
     """W frames of tracking.
 
     imgs      : (W, H, Wd) u8 — the window's gray frames.
+    imgs_right: (W, H, Wd) u8 — with has_stereo, the rectified right frames;
+                dist_pack[9] then carries the rig's bf.
     prev_img  : (H, Wd) u8 — the frame before the window.
     prev_state: TrackState entering the window.
     mvk_packs : (W, M+K+1, 8) i16 — per frame MotionVectorImage.
@@ -95,14 +97,12 @@ def tracked_window_step(
                 trails the wire.
     Returns dict(state, wire, desc_w (W, N, 8), packed_w (W, N, C),
     pose_carry (25,)), pose_carry in pose_pack's layout."""
-    if imgs_right is not None:
-        raise NotImplementedError("stereo windows (imgs_right): ROADMAP Queue 1, stereo slice")
     W = imgs.shape[0]
 
     mwire = None
     if mtri is not None:
-        mout = mapper_body(mtri, mba, intr, 0.0, K=MAPPER_SMALL["K"], P=MAPPER_SMALL["P"],
-                           O=MAPPER_SMALL["O"])
+        mout = mapper_body(mtri, mba, intr, dist_pack[9] if has_stereo else 0.0,
+                           K=MAPPER_SMALL["K"], P=MAPPER_SMALL["P"], O=MAPPER_SMALL["O"])
         mwire = mout["wire"]
         patch_tri, patch_mp = mout["patch_tri"], mout["patch_mp"]
 
@@ -131,9 +131,10 @@ def tracked_window_step(
         prior_t = torch.where(has_vel, v_R @ l_t + v_t, l_t)
         state, packed, scalars, snap_visible, R2, t2, chain_ok = _frame_program_body(
             imgs[k], p_img, state, mv_w[k], kps_w[k], cov_w[k], prior_R, prior_t, snap,
-            intr, sampler, dist_pack, reproj_err=reproj_err, threshold=threshold,
+            intr, sampler, dist_pack, imgs_right[k] if has_stereo else None,
+            reproj_err=reproj_err, threshold=threshold,
             coverage_threshold=coverage_threshold, capacity=capacity, max_cov=max_cov,
-            has_dist=has_dist,
+            has_dist=has_dist, has_stereo=has_stereo,
         )
         # The pose chain mirrors the host replay: on a ref-gate or solve
         # failure the frame keeps the previous pose (track_fused).

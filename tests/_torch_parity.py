@@ -309,9 +309,10 @@ def mapper_job_case(seed, C, K, P, O, mopp=16, intr=(320.0, 320.0, 160.0, 120.0)
             "n_tri": n_tri, "bad": kind >= 0, "tids": np.asarray(tri_tids, np.int32)}
 
 
-def window_case(seed, W=4, N=512, P=1024):
+def window_case(seed, W=4, N=512, P=1024, depth_fn=None):
     """A W-frame window at 240x320 made with the port alone: frame 0's tracks
-    on the background plane are the map; a quarter of them come as a staged
+    on the background plane (or, with depth_fn(stream, pts) -> camera depths,
+    unprojected at those depths) are the map; a quarter of them come as a staged
     mapper job's triangulation candidates (so the device patch changes what
     matches); the job's BA refines the first base rows with every keyframe
     fixed. numpy arrays, and the entering TrackState (`st0`) on the CPU,
@@ -326,8 +327,14 @@ def window_case(seed, W=4, N=512, P=1024):
     st0 = MOVExtractor(threshold=25, capacity=N, device="cpu").extract(frames[0], None, None)
     v = st0.valid.numpy()
     tids = st0.track_id.numpy()[v]
-    world = np.concatenate([stream._bg_world(0, st0.pt.numpy()[v].astype(np.float64)),
-                            np.full((len(tids), 1), stream.bg_depth)], 1)
+    pts0 = st0.pt.numpy()[v].astype(np.float64)
+    if depth_fn is None:
+        world = np.concatenate([stream._bg_world(0, pts0), np.full((len(tids), 1), stream.bg_depth)], 1)
+    else:
+        z = depth_fn(stream, pts0)
+        Rc, tc = stream.gt_pose(0)
+        cam = np.stack([(pts0[:, 0] - 160.0) * z / 320.0, (pts0[:, 1] - 120.0) * z / 320.0, z], 1)
+        world = (cam - tc) @ Rc  # R^T (X_cam - t), row-wise
     held = np.arange(len(tids)) % 4 == 3
     base_t, base_w = tids[~held][::-1], world[~held][::-1]
     n = len(base_t)
@@ -359,3 +366,97 @@ def window_case(seed, W=4, N=512, P=1024):
                 mvk=np.stack([f.packed_joint_i16()[0] for f in frames[1:]]),
                 n_mvs=frames[1].packed_joint_i16()[1], snap=snap, pose_pack=pose_pack,
                 intr=np.asarray(intr, np.float32), job=job, meta=meta, n_base=n)
+
+
+STEREO_BF = 80.0  # baseline 0.25 m x fx 320 of the stereo cases below
+
+
+def stereo_settings():
+    """tests/test_stereo_window.py::_settings on the port: a rectified rig,
+    b = 0.25 m, bf = 80 at 640x480."""
+    from movslam_tpu_torch.config.settings import STEREO, Settings
+    from movslam_tpu_torch.core.camera import Pinhole
+
+    s = Settings()
+    s.camera1 = Pinhole(320.0, 320.0, 320.0, 240.0, 640, 480)
+    s.fps = 30.0
+    s.sensor = STEREO
+    s.b, s.bf, s.th_depth = 0.25, STEREO_BF, 50.0
+    return s
+
+
+def stereo_window_case(seed, W=4, N=512, P=1024):
+    """window_case plus what a stereo window adds: `imgs_right`, the window's
+    frames rendered from a camera 0.25 m to the right (the construction of
+    io/synthetic_stereo.py at 240x320), and `dist_pack` (no distortion, the
+    image bounds, bf in [9])."""
+    from movslam_tpu_torch.io.synthetic import SyntheticStream
+    from movslam_tpu_torch.ops.lk import lk_track
+
+    kw = dict(n_points=150, seed=seed, width=320, height=240, max_mvs=1024, max_kps=512)
+    left = SyntheticStream(**kw)
+    base_pose = left.pose_fn
+
+    def right_pose(tt):
+        R, tr = base_pose(tt)
+        return R, tr - np.array([STEREO_BF / 320.0, 0, 0], np.float32)
+
+    right = SyntheticStream(pose_fn=right_pose, **kw)
+    right.points, right.patches, right.bg_tex = left.points, left.patches, left.bg_tex
+
+    def stereo_depth(stream, pts0):
+        """Frame 0's depths from its own stereo pair, as a stereo map has
+        them; the background's where the match fails."""
+        pt = torch.from_numpy(pts0.astype(np.float32))
+        out, ok = lk_track(torch.from_numpy(left.render(0)[0]), torch.from_numpy(right.render(0)[0]),
+                           pt, torch.ones(len(pt), dtype=torch.bool))
+        disp = (pt[:, 0] - out[:, 0]).numpy().astype(np.float64)
+        good = ok.numpy() & (disp > 0.5)
+        return np.where(good, STEREO_BF / np.maximum(disp, 0.5), stream.bg_depth)
+
+    sc = window_case(seed, W, N, P, depth_fn=stereo_depth)
+    sc["imgs_right"] = np.stack([right.render(k)[0] for k in range(1, W + 1)])
+    sc["dist_pack"] = np.array([0.0] * 5 + [0.0, 320.0, 0.0, 240.0, STEREO_BF], np.float32)
+    return sc
+
+
+def stereo_words(packed, has_dist=False):
+    """(depth, ur) f32 arrays from the two stereo words of packed rows (..., C)."""
+    c = 4 if has_dist else 3
+    a = np.ascontiguousarray(to_np(packed)).astype(np.int32)
+    return (np.ascontiguousarray(a[..., c]).view(np.float32),
+            np.ascontiguousarray(a[..., c + 1]).view(np.float32))
+
+
+def assert_stereo_words(got_packed, want_packed, what=""):
+    """The stereo columns of two packed stacks: the -1.0 sentinels (the gate
+    masks) equal bit for bit, ur within 1e-3 px, depth within 1e-3 relative."""
+    gd, gu = stereo_words(got_packed)
+    wd, wu = stereo_words(want_packed)
+    assert_exact(gd == -1.0, wd == -1.0, f"{what}: depth gate mask")
+    assert_exact(gu == -1.0, wu == -1.0, f"{what}: ur gate mask")
+    assert_exact((gd == -1.0), (gu == -1.0), f"{what}: depth and ur gated together")
+    have = wd != -1.0
+    assert_close(gu[have], wu[have], 1e-3, what=f"{what}: ur (px)")
+    assert_close(gd[have], wd[have], 0.0, rtol=1e-3, what=f"{what}: depth")
+    return have
+
+
+def stereo_metric_errors(system, stream):
+    """Camera-centre errors of a stereo drive in metres, with no fitted scale
+    or alignment (tests/test_stereo_window.py::_run): the estimate's world
+    frame is the init camera frame, so it is composed with the ground-truth
+    pose of the init frame. Returns (init frame, errors from there on)."""
+    tr = system.tracking
+    k0 = min(kf.frame_id for kf in system.atlas.current.keyframes.values())
+    R0, t0 = stream.gt_pose(k0)
+    errs = []
+    for k, (R_rel, t_rel) in enumerate(tr.rel_poses):
+        if k + 1 < k0:
+            continue  # no estimate exists before initialization
+        ref = tr.rel_refs[k]
+        R, tt = R_rel @ ref.R, R_rel @ ref.t + t_rel
+        Rg, tg = R @ R0, R @ t0 + tt
+        R_gt, t_gt = stream.gt_pose(k + 1)
+        errs.append(np.linalg.norm(R_gt.T @ t_gt - Rg.T @ tg))
+    return k0, np.array(errs)

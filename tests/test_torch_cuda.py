@@ -12,7 +12,7 @@ import pytest
 import torch
 
 from movslam_tpu_torch.ops import kernels
-from tests._torch_parity import candidate_case, window_case
+from tests._torch_parity import candidate_case, stereo_settings, stereo_window_case, stereo_words, window_case
 
 pytestmark = pytest.mark.cuda
 
@@ -223,3 +223,75 @@ def test_windowed_drive_runs_through_the_kernel(card):
     assert system.counts["windows"] >= 2 and system._prev_state.pt.is_cuda
     assert (kernels.score_candidates.launches - before
             == system.counts["window_frames"] + system.counts["per_frame_p"])
+
+
+def test_stereo_window_on_the_card_equals_the_cpu_window(card):
+    """One stereo W=4 window at 240x320, same draws on both devices: id and
+    meta words, counters and visibility equal; the depth and ur words' -1.0
+    sentinels (the gate masks) equal, ur within 1e-3 px and depth within 1e-3
+    relative; poses within 1e-4; one score_candidates launch per left frame."""
+    import dataclasses
+
+    from movslam_tpu_torch.ops import frame_step, window_step
+
+    W, N, P = 4, 512, 1024
+    c = stereo_window_case(5, W, N, P)
+    kw = dict(n_mvs=c["n_mvs"], reproj_err=5.0, threshold=25.0, coverage_threshold=0.2, capacity=N,
+              max_cov=512, has_stereo=True)
+
+    def run(dev):
+        to = lambda a: torch.as_tensor(a).to(dev)  # noqa: E731
+        st = type(c["st0"])(**{f.name: getattr(c["st0"], f.name).to(dev) for f in dataclasses.fields(c["st0"])})
+        tri = c["job"]["tri_wire"].copy()
+        tri[0, 30] = 1.0
+        return window_step.tracked_window_step(
+            to(c["imgs"]), to(c["prev_img"]), st, to(c["mvk"]), to(c["pose_pack"]), to(c["snap"]),
+            to(c["intr"]), _cpu_draws(5), to(c["dist_pack"]), to(c["imgs_right"]),
+            patch_meta=to(c["meta"]), mtri=to(tri), mba=to(c["job"]["ba_wire"]), **kw)
+
+    want = run("cpu")
+    before = kernels.score_candidates.launches
+    got = run(card)
+    torch.cuda.synchronize()
+    assert kernels.score_candidates.launches == before + W  # the right frames are never extracted
+    C = frame_step.packed_cols(False, True)
+    w, g = want["wire"].numpy(), got["wire"].cpu().numpy()
+    assert w.shape == g.shape
+    o1 = W * N * C
+    o2 = o1 + W * 16
+    o3 = o2 + W * (P // 32)
+    wp, gp = w[:o1].reshape(W, N, C), g[:o1].reshape(W, N, C)
+    assert np.array_equal(gp[:, :, 1], wp[:, :, 1]) and np.array_equal(gp[:, :, 2], wp[:, :, 2])
+    (gd, gu), (wd, wu) = stereo_words(gp), stereo_words(wp)
+    assert np.array_equal(gd == -1.0, wd == -1.0) and np.array_equal(gu == -1.0, wu == -1.0)
+    have = wd != -1.0
+    assert have.sum() > 100
+    assert np.abs(gu[have] - wu[have]).max() < 1e-3
+    assert np.abs(gd[have] / wd[have] - 1.0).max() < 1e-3
+    ws, gs = w[o1:o2].reshape(W, 16), g[o1:o2].reshape(W, 16)
+    assert (ws[:, 14] == 1).all() and np.array_equal(gs[:, 12:], ws[:, 12:])
+    assert np.abs(gs[:, :12].copy().view(np.float32) - ws[:, :12].copy().view(np.float32)).max() < 1e-4
+    assert np.array_equal(g[o2:o3], w[o2:o3])
+
+
+def test_stereo_system_defaults_to_the_card(card):
+    """System(settings, STEREO) without device= runs on the card: 12 pairs
+    per frame, then a batch of 8 through the windowed drive."""
+    from movslam_tpu_torch.core.system import System
+    from movslam_tpu_torch.io.synthetic_stereo import SyntheticStereoStream
+
+    system = System(stereo_settings(), System.STEREO)
+    assert system.device.type == "cuda"
+    items = [(left.timestamp, left, right) for left, right in SyntheticStereoStream(seed=5).pairs(20)]
+    before = kernels.score_candidates.launches
+    for it in items[:12]:
+        system.track_stereo(*it)
+    assert system.tracking.state.name == "OK" and system._prev_state.pt.is_cuda
+    poses = system.track_stereo_batch(items[12:])
+    system.shutdown()
+    torch.cuda.synchronize()
+    assert len(poses) == 8 and system.image_count == 20 and system.get_total_lost() == 0
+    assert system.counts["windows"] >= 1
+    assert (kernels.score_candidates.launches - before
+            == system.counts["window_frames"] + system.counts["per_frame_p"])
+    assert all(kf.depth_right is not None for kf in system.atlas.current.keyframes.values())

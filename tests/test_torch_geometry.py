@@ -176,5 +176,7 @@ def test_ba_solve_wire_matches_ba_solve(rng):
     res = ba.ba_solve(*[t(a) for a in args], FX, FY, CX, CY)
     assert_close(out[: K * 12].reshape(K, 12)[:, 9:12], res["kf_t"], 0.0)
     assert_close(out[K * 12 : K * 12 + P * 3].reshape(P, 3), res["mp_pos"], 0.0)
-    with pytest.raises(NotImplementedError):
-        ba.ba_solve_wire(t(wire), [FX, FY, CX, CY], 40.0, K=K, P=P, O=O, MOPP=16)
+    # bf != 0 adds the stereo row; with every ur = -1 it is zero everywhere
+    # and the solve goes the same way.
+    out_s = ba.ba_solve_wire(t(wire), [FX, FY, CX, CY], 40.0, K=K, P=P, O=O, MOPP=16)
+    assert_close(out_s, out, 1e-5, what="bf != 0 without stereo rows")

@@ -4,7 +4,7 @@
 (b) the port against the JAX drive on the same stream, at trajectory level
     (their RANSAC generators differ, so frame-level poses are not compared);
 (d) the port's synthetic stream renders the reference's frames;
-(e) the port imports and runs, per frame and one window, with jax, flax,
+(e) the port imports and runs, per frame, one window and three stereo pairs, with jax, flax,
     yaml, cv2 and the JAX package blocked — the machine with the card has none of the first four,
     and the port keeps its own copies of what it needs from the fifth;
 plus the explicit-device rule. ((c), TrackState.from_numpy on a JAX state,
@@ -146,6 +146,17 @@ def test_runs_with_jax_flax_yaml_cv2_blocked(tmp_path):
         assert system.tracking.state.name == "OK", system.tracking.state
         assert system.counts["windows"] >= 1 and len(poses) == 4, system.counts
         assert system.image_count == 9 and system.get_total_lost() == 0
+        from movslam_tpu_torch.config.settings import STEREO
+        from movslam_tpu_torch.config import rectify
+        from movslam_tpu_torch.core import stereo, stereo_rectified
+        from movslam_tpu_torch.io.synthetic_stereo import SyntheticStereoStream
+        s.sensor, s.b, s.bf = STEREO, 0.25, 80.0
+        ssys = System(s, STEREO, device="cpu")
+        for left, right in SyntheticStereoStream(seed=5).pairs(3):
+            ssys.track_stereo(left.timestamp, left, right)
+        ssys.shutdown()
+        assert ssys.tracking.state.name == "OK" and ssys.atlas.current.n_mappoints() > 100
+        assert ssys.tracking.last_kf.depth_right is not None
         blocked = ("jax", "jaxlib", "flax", "yaml", "cv2", "movslam_tpu")
         loaded = [m for m in sys.modules if m.split(".")[0] in blocked]
         assert all(sys.modules[m] is None for m in loaded), loaded
@@ -181,9 +192,13 @@ def test_device_is_explicit():
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="cuda"):
             System(port_settings(), MONOCULAR, device="cuda")
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="cuda"):  # stereo defaults to the card too
+            System(port_settings(), System.STEREO)
+    assert System(port_settings(), System.STEREO, device="cpu").device.type == "cpu"
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        System(port_settings(), System.STEREO, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        System(port_settings(), System.IMU_MONOCULAR, device="cpu")
+    with pytest.raises(ValueError, match="Stereo"):
         System(port_settings(), MONOCULAR, device="cpu").track_stereo_batch([])
     with pytest.raises(TypeError):  # nothing picks the CPU on its own
         TrackState.empty(8)

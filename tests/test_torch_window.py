@@ -109,10 +109,18 @@ def test_keyframe_descriptors_are_archived_lazily(pipelined, per_frame):
 
 def test_later_slices_name_their_queue_item():
     system = System(port_settings(), MONOCULAR, device="cpu")
-    with pytest.raises(NotImplementedError, match="stereo slice"):
+    with pytest.raises(ValueError, match="Stereo"):
         system.track_stereo_batch([])
-    with pytest.raises(NotImplementedError, match="localization"):
-        system.activate_localization_mode()
-    assert system.tracking.only_tracking is False
+    with pytest.raises(ValueError, match="Stereo"):
+        system.track_stereo(0.0, None, None)
+    with pytest.raises(NotImplementedError, match="global BA slice"):
+        system.global_bundle_adjustment()
+    with pytest.raises(NotImplementedError, match="VI slice"):
+        System(port_settings(), System.IMU_MONOCULAR, device="cpu")
+    assert system.localization_mode_active() is False
+    system.activate_localization_mode()
+    assert system.tracking.only_tracking is True
+    system.deactivate_localization_mode()
+    assert system.localization_mode_active() is False
     assert system.track_monocular_batch([]) == []
     assert torch.get_num_threads() <= 2

@@ -264,6 +264,17 @@ def test_window_equals_sequential_frame_steps(scenario):
 def test_stereo_window_names_its_slice(scenario):
     _, sc = scenario
     st, snap, pose_pack, _, _ = port_window_inputs(sc["jst0"], sc["snap"], sc["pose_pack"])
-    with pytest.raises(NotImplementedError, match="stereo slice"):
-        window_step.tracked_window_step(t(sc["imgs"]), t(sc["prev_img"]), st, t(sc["mvk"]), pose_pack, snap,
-                                        t(INTR), None, imgs_right=t(sc["imgs"]), n_mvs=sc["n_mvs"], **KW)
+    # The stereo arm is ported: with the left stack as the right one every
+    # disparity is 0, below the 0.1 px gate, so each slot carries the -1.0
+    # sentinels in its two extra words and the mono words are unchanged.
+    gen = lambda: make_sampler(torch.Generator("cpu").manual_seed(1))  # noqa: E731
+    dist_pack = torch.tensor([0.0] * 5 + [0.0, 320.0, 0.0, 240.0, 80.0])
+    mono = window_step.tracked_window_step(t(sc["imgs"]), t(sc["prev_img"]), st, t(sc["mvk"]), pose_pack, snap,
+                                           t(INTR), gen(), dist_pack, n_mvs=sc["n_mvs"], **KW)
+    got = window_step.tracked_window_step(t(sc["imgs"]), t(sc["prev_img"]), st, t(sc["mvk"]), pose_pack, snap,
+                                          t(INTR), gen(), dist_pack, imgs_right=t(sc["imgs"]),
+                                          n_mvs=sc["n_mvs"], has_stereo=True, **KW)
+    assert got["packed_w"].shape == (W, N, frame_step.packed_cols(False, True))
+    assert_exact(got["packed_w"][:, :, :3], mono["packed_w"], "mono words")
+    none = int(np.float32(-1.0).view(np.int32))
+    assert (to_np(got["packed_w"][:, :, 3:]) == none).all()
