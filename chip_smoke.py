@@ -19,10 +19,11 @@ Phases (any failure exits nonzero and prints no result line):
                640x480, with the gates of tests/test_pipeline.py (0 lost,
                live ATE < 0.35 m, post-hoc ATE < 0.10 m) and
                score_candidates launched once on every P-frame.
-  4. launches: the first 24 frames of the same drive twice more, frames
-               16-23 under torch.profiler: as it is, and with the scoring step put back to the
-               unfused composition (the score_blocks kernel inside
-               score_candidates_ref), counting CUDA launches per frame.
+  4. launches: the first 20 frames of the same drive twice more, frames
+               16-19 under torch.profiler: as it is, and with the scoring
+               step put back to the unfused composition (the score_blocks
+               kernel inside score_candidates_ref), counting CUDA launches
+               per frame.
   5. windows : the windowed drive on the card at full width (640x480,
                2048 tracks, 4096 MVs, SNAP_CAP 4096, mapper class 32/1024/4096,
                W=8, pipeline_depth=2) over SyntheticStream(n_points=400,
@@ -33,7 +34,7 @@ Phases (any failure exits nonzero and prints no result line):
                localization mode (activate_localization_mode: keyframes, map
                points and the map's change index must not move, >= 12 of the
                16 frames answered); and a per-frame drive of the warm-up and
-               the first 48 timed frames for comparison. Gates: 0 lost, every
+               the first 24 timed frames for comparison. Gates: 0 lost, every
                frame counted and answered, >= 5 keyframes, > 100 map points,
                the ATE bounds of phase 3, at least one speculative window and
                one mapper job committed from a window's wire, and
@@ -54,6 +55,22 @@ Phases (any failure exits nonzero and prints no result line):
                dispatched, and a mapper job with bf != 0 committed from a
                window's wire. Rewinds are reported, not gated: a stereo
                window always rewinds at a mid-window keyframe.
+  7. vi      : System(settings, IMU_MONOCULAR) on the card at 640x480
+               (camera 320/320/320/240, fps 30, vi_min_kfs = 8) over
+               SyntheticVIStream(n_points=400, seed=11), the settings and
+               stream of tests/test_vi_system.py: 60 frames through
+               track_monocular(..., imu=), then 96 frames through
+               track_monocular_batch((ts, smv, imu) triples, batches of 8,
+               W=8, pipeline_depth=2, flush=False) and one flush=True, then 8
+               more under torch.profiler; one _local_ba_vi call and one
+               preintegrate call under the profiler after the per-frame
+               drive. Gates: the map IMU-initialized in both drives, metric
+               keyframe camera-centre error (no fitted scale) median
+               < 0.15 * max(span, 0.5), the reference's bound, velocity and
+               gyro bias on the last keyframe of the per-frame drive, at
+               least one _local_ba_vi call there, 0 lost and every frame
+               answered from the init on, and score_candidates launched once
+               for every P-frame dispatched.
 Before the last line it prints the card's name and power limit and one JSON
 line describing each kernel; the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -72,13 +89,14 @@ import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 N_FRAMES = 40
-L_FRAMES = 24  # phase 4's drives
-PROFILED = range(16, 24)
+L_FRAMES = 20  # phase 4's drives
+PROFILED = range(16, 20)
 W_WARM, W_TIMED, W_PROFILED, W_BATCH = 48, 96, 16, 8  # phase 5, in frames
 W_LOC = 16  # phase 5: frames tracked in localization mode
-PF_TIMED = 48  # phase 5: timed frames of the per-frame comparison drive
+PF_TIMED = 24  # phase 5: timed frames of the per-frame comparison drive
 S_PER_FRAME, S_WARM, S_TIMED, S_PROFILED = 25, 16, 48, 8  # phase 6, in stereo pairs
 STEREO_B, STEREO_BF = 0.25, 80.0
+VI_PER_FRAME, VI_WINDOWED, VI_PROFILED, VI_MIN_KFS = 60, 96, 8, 8  # phase 7, in frames
 PROF_STAGES = ("disp_pack_host", "disp_upload", "disp_commit_snap", "disp_jit_call", "disp_tail",
                "rep_wire_pull", "rep_pre", "rep_track_fused")
 GRAPH_LAUNCHES = 200
@@ -629,6 +647,195 @@ def stereo_phase(System, settings, stereo, State, SyntheticStereoStream, kernels
     return {"per_frame": pf, "windowed": win, "lk_track": lk}
 
 
+def vi_phase(System, settings, sensor, SyntheticVIStream, kernels, card):
+    """Phase 7 (see the module docstring). Returns the numbers it printed."""
+    import numpy as np
+    import torch
+    from torch.profiler import profile
+
+    from movslam_tpu_torch.core import local_mapping
+    from movslam_tpu_torch.core.inertial import _stack_windows, preintegrate_windows
+
+    n_win = VI_WINDOWED + VI_PROFILED
+    stream = SyntheticVIStream(n_points=400, seed=11)
+    items = list(stream.items(n_win))  # rendering and the IMU samples are set-up
+
+    def gt_center(k):
+        R, t = stream.gt_pose(k)
+        return -(R.T @ t)
+
+    def summary(system, poses, n):
+        m = system.atlas.current
+        errs = np.array([np.linalg.norm(kf.center() - gt_center(kf.frame_id)) for kf in m.keyframes.values()])
+        span = float(np.linalg.norm(np.ptp(np.array([gt_center(k) for k in range(n)]), axis=0)))
+        init = next((k for k, p in enumerate(poses) if p is not None), n)
+        mp = system.mapper
+        c = system.counts
+        return {
+            "state": system.tracking.state.name, "lost": system.get_total_lost(), "frames": system.image_count,
+            "poses": len(poses), "init_frame": init,
+            "answered_from_init": len(poses) == n and all(p is not None for p in poses[init:]),
+            "keyframes": m.n_keyframes(), "map_points": m.n_mappoints(),
+            "imu_initialized": m.imu_initialized, "imu_scale": m.imu_scale, "init_stages": m.imu_init_count,
+            "vi_inits": [{"stage": st, "keyframes": nk, "scale": sc, "ms": ms, "preintegrate_steps": steps}
+                         for st, nk, sc, ms, steps in mp.vi_inits],
+            "vi_ba_calls": len(mp.vi_ba_ms), "vi_ba_ms": mp.vi_ba_ms, "vi_ba_preintegrate_steps": mp.vi_ba_steps,
+            "kf_err_median_m": float(np.median(errs)), "kf_err_max_m": float(errs.max()), "span_m": span,
+            "err_bound_m": 0.15 * max(span, 0.5),
+            "window_frames": c["window_frames"], "per_frame_p": c["per_frame_p"],
+            "p_frames_dispatched": c["window_frames"] + c["per_frame_p"], "rewinds": c["rewinds"],
+            "launches": {"score_candidates": kernels.score_candidates.launches,
+                         "score_blocks": kernels.score_blocks.launches},
+        }
+
+    # The per-frame drive.
+    kernels.score_blocks.launches = kernels.score_candidates.launches = 0
+    psys = System(settings, sensor, device="cuda")
+    psys.mapper.vi_min_kfs = VI_MIN_KFS
+    poses = []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for ts, smv, imu in items[:VI_PER_FRAME]:
+        poses.append(psys.track_monocular(ts, smv, imu=imu))
+    torch.cuda.synchronize()
+    pf_ms = 1e3 * (time.perf_counter() - t0) / VI_PER_FRAME
+    pf = summary(psys, poses, VI_PER_FRAME)
+    m = psys.atlas.current
+    last = max(m.keyframes.values(), key=lambda kf: kf.id)
+    pf.update({"ms_per_frame": pf_ms, "last_kf_velocity_set": last.velocity is not None,
+               "last_kf_bias_g_set": last.bias_g is not None})
+
+    # One _local_ba_vi call and one preintegrate call (the chain's windows at
+    # the VI BA's padding) under the profiler, on the drive's final map.
+    mapper = psys.mapper
+    chain = [mapper.current_kf]
+    while len(chain) < 24 and chain[-1].prev_kf is not None and chain[-1].prev_kf.id in m.keyframes:
+        chain.append(chain[-1].prev_kf)
+    win = _stack_windows(chain[::-1], psys.imu_buffer)
+    pad = lambda x: np.concatenate([x, np.zeros((47 - len(x),) + x.shape[1:], x.dtype)])  # noqa: E731
+    zero = np.zeros((47, 3), np.float32)
+    one = {}
+    torch.cuda.synchronize()
+    for name, call in (  # both ran all through the drive: no warm-up call
+        ("local_ba_vi", lambda: mapper._local_ba_vi(m)),
+        ("preintegrate", lambda: preintegrate_windows(*(pad(x) for x in win[:4]), zero, zero, psys.device)),
+    ):
+        with profile(activities=drive_activities()) as prof:
+            t1 = time.perf_counter()
+            out = call()
+            torch.cuda.synchronize()
+            wall = 1e3 * (time.perf_counter() - t1)
+        host, _, busy = launch_counts(prof, 1)
+        one[name] = {"host_launches": host, "busy_ms": busy, "wall_ms_profiled": wall}
+        if name == "preintegrate":
+            one[name]["steps"] = out[1]
+    psys.shutdown()
+    torch.cuda.synchronize()
+
+    # The windowed drive, noting for each init attempt whether it ran inside
+    # a window's replay and how many windows were in flight then.
+    kernels.score_blocks.launches = kernels.score_candidates.launches = 0
+    system = System(settings, sensor, device="cuda")
+    system.mapper.vi_min_kfs = VI_MIN_KFS
+    replaying, crossings = [], []
+    replay, init = system._replay_window, local_mapping.visual_inertial_init
+
+    def replay_noted(wf):
+        replaying.append(len(wf["run"]))
+        try:
+            return replay(wf)
+        finally:
+            replaying.pop()
+
+    def init_noted(*args, **kwargs):
+        crossings.append({"frame": system.image_count, "in_replay": bool(replaying),
+                          "windows_in_flight": len(system._wfq)})
+        return init(*args, **kwargs)
+
+    system._replay_window = replay_noted
+    local_mapping.visual_inertial_init = init_noted
+    poses = []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    try:
+        for k in range(0, VI_WINDOWED, W_BATCH):
+            poses += system.track_monocular_batch(items[k:k + W_BATCH], flush=False)
+        poses += system.track_monocular_batch([], flush=True)
+        torch.cuda.synchronize()
+    finally:
+        local_mapping.visual_inertial_init = init
+    win_ms = 1e3 * (time.perf_counter() - t0) / VI_WINDOWED
+    before = collections.Counter(system.counts)
+    with profile(activities=drive_activities()) as prof:
+        t0 = time.perf_counter()
+        poses += system.track_monocular_batch(items[VI_WINDOWED:], flush=True)
+        torch.cuda.synchronize()
+        prof_wall_ms = 1e3 * (time.perf_counter() - t0) / VI_PROFILED
+    profiled = collections.Counter(system.counts)
+    profiled.subtract(before)
+    host, devk, busy = launch_counts(prof, VI_PROFILED)
+    per_window_frame = host * VI_PROFILED / max(profiled["window_frames"], 1)
+    system.shutdown()
+    torch.cuda.synchronize()
+    wd = summary(system, poses, n_win)
+    wd.update({
+        "ms_per_frame": win_ms, "speculative_windows": system.counts["spec_windows"],
+        "mapper_jobs_fused": system.mapper.n_fused_jobs, "mapper_jobs_standalone": system.mapper.n_standalone_jobs,
+        "imu_buffer_frames": len(system.imu_buffer.by_frame), "init_attempts": crossings,
+        "profiled": {"host_launches": host, "device_kernels": devk, "busy_ms": busy, "wall_ms": prof_wall_ms,
+                     "window_frames": profiled["window_frames"], "per_frame_p": profiled["per_frame_p"],
+                     "host_launches_per_window_frame": per_window_frame, "idle_share": 1 - busy / prof_wall_ms},
+    })
+
+    for label, r in (("per-frame", pf), ("windowed", wd)):
+        inits = ", ".join(f"stage {i['stage']} at {i['keyframes']} KFs scale {i['scale']} in {i['ms']:.1f} ms "
+                          f"({i['preintegrate_steps']} preintegrate steps)" for i in r["vi_inits"]
+                          if i["scale"] is not None)
+        ba = r["vi_ba_ms"]
+        print(f"vi: {label} drive {r['ms_per_frame']:.2f} ms/frame over {r['frames']} frames, state {r['state']}, "
+              f"init at frame {r['init_frame']}, lost {r['lost']}, {r['keyframes']} keyframes, {r['map_points']} map "
+              f"points; IMU initialized {r['imu_initialized']} ({r['init_stages']} stages: {inits}); "
+              f"_local_ba_vi calls {r['vi_ba_calls']}"
+              + (f", {np.mean(ba):.1f} ms per call (median {np.median(ba):.1f}), preintegrate steps per call "
+                 f"{sorted(set(r['vi_ba_preintegrate_steps']))}" if ba else "")
+              + f"; keyframe metric error median {r['kf_err_median_m']:.4f} m max {r['kf_err_max_m']:.4f} m "
+              f"(bound {r['err_bound_m']:.4f} m, span {r['span_m']:.4f} m); score_candidates launches "
+              f"{r['launches']['score_candidates']} for {r['p_frames_dispatched']} P-frames dispatched "
+              f"({r['window_frames']} in windows, {r['per_frame_p']} per frame, {r['rewinds']} rewinds) on {card}",
+              flush=True)
+    print(f"vi: windowed drive init attempts (frame, inside a window's replay, windows in flight): "
+          f"{[(c['frame'], c['in_replay'], c['windows_in_flight']) for c in crossings]}", flush=True)
+    print(f"vi: {VI_PROFILED} more windowed frames under the profiler ({profiled['window_frames']} window frames, "
+          f"{profiled['per_frame_p']} per-frame): {host:.1f} launch calls/frame ({per_window_frame:.1f} per window "
+          f"frame dispatched), {devk:.1f} device kernels/frame, device busy {busy:.2f} ms of {prof_wall_ms:.2f} "
+          f"ms/frame with the profiler on (idle {1 - busy / prof_wall_ms:.3f}) on {card}", flush=True)
+    for name, r in one.items():
+        print(f"vi: one {name} call ({'the last keyframe chain, K = 48' if name == 'local_ba_vi' else str(r.get('steps')) + ' steps, 47 windows'}): "
+              f"{r['host_launches']:.0f} launch calls, device busy {r['busy_ms']:.2f} ms, {r['wall_ms_profiled']:.2f} "
+              f"ms with the profiler on, on {card}", flush=True)
+
+    checks = {}
+    for label, r in (("per frame", pf), ("windowed", wd)):
+        checks.update({
+            f"{label}: IMU initialized": r["imu_initialized"],
+            f"{label}: median keyframe metric error < 0.15 * max(span, 0.5)": r["kf_err_median_m"] < r["err_bound_m"],
+            f"{label}: 0 lost": r["lost"] == 0,
+            f"{label}: every frame counted and answered from the init": r["answered_from_init"]
+            and r["frames"] == r["poses"],
+            f"{label}: score_candidates once per dispatched P-frame":
+                r["launches"]["score_candidates"] == r["p_frames_dispatched"] > 0,
+        })
+    checks.update({
+        "per frame: velocity and gyro bias on the last keyframe": pf["last_kf_velocity_set"] and pf["last_kf_bias_g_set"],
+        "per frame: at least one _local_ba_vi call": pf["vi_ba_calls"] >= 1,
+        "windowed: a window ran": wd["window_frames"] > 0,
+    })
+    bad = [name for name, ok in checks.items() if not ok]
+    if bad:
+        fail(f"vi gates failed: {bad}")
+    return {"per_frame": pf, "windowed": wd, "one_call": one}
+
+
 def main():
     try:
         import numpy as np
@@ -639,13 +846,14 @@ def main():
         fail("torch.cuda.is_available() is False: this smoke test needs an NVIDIA card")
     sys.path.insert(0, HERE)
     try:
-        from movslam_tpu_torch.config.settings import MONOCULAR, STEREO, Settings
+        from movslam_tpu_torch.config.settings import IMU_MONOCULAR, MONOCULAR, STEREO, Settings
         from movslam_tpu_torch.core.camera import Pinhole
         from movslam_tpu_torch.core.system import System
         from movslam_tpu_torch.core.tracking import State
         from movslam_tpu_torch.io.mvimage import FrameType
         from movslam_tpu_torch.io.synthetic import SyntheticStream
         from movslam_tpu_torch.io.synthetic_stereo import SyntheticStereoStream
+        from movslam_tpu_torch.io.synthetic_vi import SyntheticVIStream
         from movslam_tpu_torch.ops import kernels, propagate
     except ImportError as e:
         fail(f"the port (movslam_tpu_torch) does not import from {HERE}: {e}")
@@ -839,6 +1047,14 @@ def main():
     ss.b, ss.bf, ss.th_depth = STEREO_B, STEREO_BF, 50.0
     ste = stereo_phase(System, ss, STEREO, State, SyntheticStereoStream, kernels, card)
     phase_done("stereo")
+
+    # --- 7. visual-inertial, per frame and windowed, on the card -----------------
+    vs = Settings()
+    vs.camera1 = Pinhole(320.0, 320.0, 320.0, 240.0, 640, 480)
+    vs.fps = 30.0
+    vs.sensor = IMU_MONOCULAR
+    vi = vi_phase(System, vs, IMU_MONOCULAR, SyntheticVIStream, kernels, card)
+    phase_done("vi")
     check_banned()
 
     src = "movslam_tpu_torch/csrc/score_blocks.cu"
@@ -847,7 +1063,7 @@ def main():
     for name, launched, path in (
         ("score_candidates", launches["score_candidates"],
          "per-frame drive (phase 3); launches_windowed: windowed drive (phase 5); "
-         "launches_stereo_*: the stereo drives (phase 6)"),
+         "launches_stereo_*: the stereo drives (phase 6); launches_vi_*: the VI drives (phase 7)"),
         ("score_blocks", per_frame["unfused"]["score_blocks"],
          "per-frame drive with unfused scoring (phase 4)"),
     ):
@@ -856,7 +1072,9 @@ def main():
             "name": name, "route": "cuda", "source": src, "replaces": replaces,
             "launches": launched, "launches_windowed": win["launches"][name],
             "launches_stereo_windowed": ste["windowed"]["launches"][name],
-            "launches_stereo_per_frame": ste["per_frame"]["launches"][name], "path": path,
+            "launches_stereo_per_frame": ste["per_frame"]["launches"][name],
+            "launches_vi_per_frame": vi["per_frame"]["launches"][name],
+            "launches_vi_windowed": vi["windowed"]["launches"][name], "path": path,
             "max_abs_err": cand_err if name == "score_candidates" else blocks_err,
             "ms": t["ms"], "wrapper_ms": t["wrapper_ms"], "profiler_ms": t["profiler_ms"],
             "plain_ms": t["plain_ms"], "plain_device_ms": t["plain_device_ms"],
@@ -865,6 +1083,7 @@ def main():
     print(json.dumps({"launches_per_frame": per_frame, "card": card}), flush=True)
     print(json.dumps({"windowed_drive": win, "card": card}), flush=True)
     print(json.dumps({"stereo_drive": ste, "card": card}), flush=True)
+    print(json.dumps({"vi_drive": vi, "card": card}), flush=True)
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),

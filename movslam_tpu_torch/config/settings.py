@@ -4,7 +4,8 @@ Port of movslam_tpu/config/settings.py. Settings can be built in code (as
 the tests and chip_smoke.py do) or read from the reference's OpenCV-style
 YAML with `Settings.from_yaml`, which imports `yaml` only when called.
 Stereo rigs are either pre-rectified (`Stereo.b`) or raw PinHole pairs with
-`Stereo.T_c1_c2`, which are rectified by config/rectify.py.
+`Stereo.T_c1_c2`, which are rectified by config/rectify.py. The IMU noise
+model of the visual-inertial sensor comes from the optional `IMU.*` keys.
 """
 from __future__ import annotations
 
@@ -46,8 +47,8 @@ def _load_opencv_yaml(path):
 
 @dataclasses.dataclass
 class Settings:
-    """The settings the monocular and stereo slices read (the reference's
-    other fields belong to later slices)."""
+    """The settings the monocular, stereo and visual-inertial drives read (the
+    reference's other fields belong to later slices)."""
 
     camera1: Pinhole | None = None
     camera2: Pinhole | None = None
@@ -70,6 +71,13 @@ class Settings:
     reprojection_error_lost: float = 8.0
     th_far_points: float = 0.0
     sensor: int = MONOCULAR
+    # IMU noise densities (EuRoC defaults), from the optional IMU.NoiseGyro /
+    # IMU.NoiseAcc keys (the reference declares Settings::readIMU but never
+    # defines it, Settings.h:159). The bias random walks of the preintegration
+    # are fixed (ops/imu.preintegrate); IMU.GyroWalk, IMU.AccWalk and
+    # IMU.Frequency are not read.
+    imu_noise_gyro: float = 1.7e-4
+    imu_noise_acc: float = 2e-3
 
     @property
     def th_depth_m(self):
@@ -79,8 +87,8 @@ class Settings:
     @staticmethod
     def from_yaml(path, sensor=MONOCULAR):
         """Read a reference-schema settings file (Settings.cc:149-199)."""
-        if sensor not in (MONOCULAR, STEREO):
-            raise NotImplementedError("visual-inertial settings: ROADMAP Queue 1, VI slice")
+        if sensor not in (MONOCULAR, STEREO, IMU_MONOCULAR):
+            raise ValueError(f"unsupported sensor {sensor!r}")
         d = _load_opencv_yaml(path)
 
         def req(key, cast=float):
@@ -151,6 +159,8 @@ class Settings:
         s.reprojection_error = req("Optimizer.reprojectionError")
         s.reprojection_error_lost = req("Optimizer.reprojectionErrorLost")
         s.th_far_points = opt("System.thFarPoints", 0.0)
+        s.imu_noise_gyro = opt("IMU.NoiseGyro", s.imu_noise_gyro)
+        s.imu_noise_acc = opt("IMU.NoiseAcc", s.imu_noise_acc)
         return s
 
     def _precompute_rectification(self):

@@ -17,9 +17,14 @@ fuse with neighbours -> local BA. Two modes:
       tracker as a device-side snapshot patch.
 
 `start_thread` runs the queue on a mapper thread (System.cc:129): graph
-mutation happens under `map_lock`, device waits outside it. Visual-inertial
-BA and map merge are later slices of ROADMAP Queue 1 and raise
-NotImplementedError.
+mutation happens under `map_lock`, device waits outside it.
+
+Visual-inertial (`imu_buffer` set by System for IMU_MONOCULAR): at 6, 12 and
+24 keyframes (`vi_min_kfs` * 2^stage) the gravity/scale init
+(core/inertial.py) re-expresses the map metric; once it has run, the
+per-frame mode's local BA is the joint visual-inertial one (`_local_ba_vi`,
+ops/vi_ba.py) over the temporal keyframe chain, committed at once. Map merge
+is a later slice of ROADMAP Queue 1 and raises NotImplementedError.
 """
 from __future__ import annotations
 
@@ -34,6 +39,8 @@ from ..ops.mapper_step import (
     BA_MOPP, MAPPER_BIG, MAPPER_SMALL, TRI_CAP, mapper_step_wire, split_mapper_wire,
 )
 from ..ops.triangulate import MAX_PAIRS, triangulate_pairs_np
+from ..ops.vi_ba import vi_ba_solve
+from .inertial import _stack_windows, preintegrate_windows, visual_inertial_init
 from .map import MapPoint, update_normals_batch
 from .matcher import FuseCandidates, fuse, search_for_triangulation
 from .verbose import Verbose
@@ -230,6 +237,16 @@ class LocalMapping:
         self._staged = None  # the SMALL job waiting for a window to run it
         self.n_fused_jobs = 0  # jobs a window ran, committed from its wire
         self.n_standalone_jobs = 0  # jobs launched through mapper_step_wire
+        # Visual-inertial (set by System when the sensor is IMU_MONOCULAR).
+        self.imu_buffer = None
+        self.imu_noise = (1.7e-4, 2e-3)
+        self.vi_min_kfs = 6
+        # What the VI path did: one (stage, keyframes, scale or None, ms,
+        # preintegration steps) per init attempt, and per _local_ba_vi call
+        # its ms and preintegration steps.
+        self.vi_inits = []
+        self.vi_ba_ms = []
+        self.vi_ba_steps = []
 
     # --- queue interface (Tracking -> mapper) ------------------------------
     def insert_keyframe(self, kf):
@@ -360,14 +377,41 @@ class LocalMapping:
                 self.lba_count += 1
         elif not self.queue and m.n_keyframes() > 2:
             t0 = time.perf_counter()
-            self._local_ba(m)
+            if self.imu_buffer is not None and m.imu_initialized:
+                self._local_ba_vi(m)  # joint visual-inertial, committed at once
+            else:
+                self._local_ba(m)  # launched; committed at the next keyframe
             self.lba_ms.append(1e3 * (time.perf_counter() - t0))
             self.lba_count += 1
+        if self.imu_buffer is not None:
+            self._staged_vi_init(m)
         if (len(self.atlas.maps) > 1 and m.n_keyframes() >= 5
                 and m.n_keyframes() % 5 == 0):
             raise NotImplementedError(
                 "multi-map welding (core/map_merge.py): ROADMAP Queue 1, pose graph / map merge slice"
             )
+
+    def _staged_vi_init(self, m):
+        """The gravity/scale init, staged like ORB-SLAM3's repeated inertial
+        inits: a first solve at vi_min_kfs keyframes sees a short, weakly
+        exciting baseline; solving again at 2x and 4x the keyframe count
+        tightens scale and gravity. The pre-scale mapper work lands first."""
+        stage = m.imu_init_count
+        if stage >= 3 or m.n_keyframes() < self.vi_min_kfs * (2 ** stage):
+            return
+        t0 = time.perf_counter()
+        self._commit_pending_ba()
+        self._commit_deferred()
+        with self.map_lock:
+            res = visual_inertial_init(
+                m, list(m.keyframes.values()), self.imu_buffer, device=self.device,
+                noise_gyro=self.imu_noise[0], noise_acc=self.imu_noise[1],
+            )
+        if res is not None:
+            m.imu_init_count = stage + 1
+        self.vi_inits.append((stage, m.n_keyframes(), None if res is None else float(res["scale"]),
+                              1e3 * (time.perf_counter() - t0),
+                              None if res is None else res["preintegrate_steps"]))
 
     # --- stages -----------------------------------------------------------
     def _keyframe_culling(self, m, kf):
@@ -381,6 +425,9 @@ class LocalMapping:
         for cand in kf.best_covisible(m, 30):
             if cand.id in protected or cand.bad:
                 continue
+            if (m.imu_initialized and cand.prev_kf is not None and cand.next_kf is not None
+                    and cand.next_kf.timestamp - cand.prev_kf.timestamp > 3.0):
+                continue  # keep the preintegration chain dense (ORB-SLAM3's 3 s gap guard)
             n_mps = n_red = 0
             for mid in cand.mp_ids:
                 if mid < 0:
@@ -607,6 +654,18 @@ class LocalMapping:
         keyframe would hold the gauge (Optimizer.cc:525-529)."""
         kf0 = self.current_kf
         local = [kf0] + kf0.best_covisible(m, MAX_OPT_KF - 1)
+        sel = self._points_and_fixed(m, local, max_mp)
+        if sel is None:
+            return None
+        mps, fixed = sel
+        if not fixed and not any(kf.id == m.init_kf_id for kf in local):
+            return None
+        return len(local), local + fixed, mps
+
+    @staticmethod
+    def _points_and_fixed(m, local, max_mp):
+        """The points seen by the local keyframes (at most max_mp) and the
+        fixed keyframes: the points' other observers. None without points."""
         local_ids = {kf.id for kf in local}
         local_mps = {}
         for kf in local:
@@ -625,10 +684,7 @@ class LocalMapping:
                     kf = m.keyframes.get(kf_id)
                     if kf is not None and not kf.bad:
                         fixed[kf_id] = kf
-        fixed = list(fixed.values())[:MAX_FIX_KF]
-        if not fixed and not any(kf.id == m.init_kf_id for kf in local):
-            return None
-        return len(local), local + fixed, mps
+        return mps, list(fixed.values())[:MAX_FIX_KF]
 
     def _local_ba(self, m):
         """The per-frame mode's local BA: launched on the device, committed
@@ -651,6 +707,83 @@ class LocalMapping:
             "obs_meta": prob["obs_meta"], "kfs": kfs, "mps": prob["mps"],
             "kf_fixed": prob["kf_fixed"], "map": m,
         }
+
+    def _local_ba_vi(self, m):
+        """Joint visual-inertial local BA over the temporal keyframe chain
+        (prev_kf links, at most MAX_OPT_KF): preintegrated inertial and bias
+        random-walk edges between consecutive states, solved with the visual
+        edges by ops/vi_ba.vi_ba_solve (ORB-SLAM3's LocalInertialBA shape,
+        G2oTypes.h:522-666), and committed at once. The device wait happens
+        outside the map lock, the writeback under it. Monocular rows only: the
+        reference's third (stereo) row is zero on a monocular rig."""
+        t0 = time.perf_counter()
+        chain = [self.current_kf]
+        while (len(chain) < MAX_OPT_KF and chain[-1].prev_kf is not None
+               and not chain[-1].prev_kf.bad and chain[-1].prev_kf.id in m.keyframes):
+            chain.append(chain[-1].prev_kf)
+        chain.reverse()  # temporal order: edges between consecutive rows
+        if len(chain) < 2:
+            return self._local_ba(m)
+        sel = self._points_and_fixed(m, chain, MAX_BA_MP)
+        if sel is None:
+            return
+        mps, fixed = sel
+        kfs = chain + fixed
+        K = MAX_OPT_KF + MAX_FIX_KF
+        prob = assemble_ba_problem(kfs, len(chain), mps, m.init_kf_id, K)
+        if prob is None:
+            return
+
+        # Per-KF velocity/bias, with defaults for keyframes made after the VI
+        # init: a finite-difference velocity, the previous keyframe's bias.
+        kf_v = np.zeros((K, 3), np.float32)
+        kf_bg = np.zeros((K, 3), np.float32)
+        kf_ba = np.zeros((K, 3), np.float32)
+        for i, kf in enumerate(kfs):
+            if kf.bias_g is not None:
+                kf_bg[i] = kf.bias_g
+                kf_ba[i] = kf.bias_a
+            elif 0 < i < len(chain) and kfs[i - 1].bias_g is not None:
+                kf_bg[i] = kfs[i - 1].bias_g
+                kf_ba[i] = kfs[i - 1].bias_a
+            if kf.velocity is not None:
+                kf_v[i] = kf.velocity
+            elif 0 < i < len(chain):
+                dt = max(kf.timestamp - kfs[i - 1].timestamp, 1e-3)
+                kf_v[i] = (kf.center() - kfs[i - 1].center()) / dt
+
+        # The chain's windows padded to K-1 edges, each preintegrated at its
+        # start keyframe's bias.
+        gyro, acc, dts, valid, w_ok = _stack_windows(chain, self.imu_buffer)
+        E = len(chain) - 1
+        pad = lambda x: np.concatenate([x, np.zeros((K - 1 - E,) + x.shape[1:], x.dtype)])  # noqa: E731
+        pre_bg0, pre_ba0 = pad(kf_bg[:E]), pad(kf_ba[:E])
+        pres, steps = preintegrate_windows(pad(gyro), pad(acc), pad(dts), pad(valid), pre_bg0, pre_ba0,
+                                           self.device, sigma_g=self.imu_noise[0], sigma_a=self.imu_noise[1])
+        dev = lambda x: torch.as_tensor(x, device=self.device)  # noqa: E731
+        kf_pack, mp_pack, obs_pack = prob["kf_pack"], prob["mp_pack"], prob["obs_pack"]
+        cam = self.camera
+        res = vi_ba_solve(
+            dev(kf_pack[:, 0:9].reshape(K, 3, 3)), dev(kf_pack[:, 9:12]), dev(kf_pack[:, 12] > 0),
+            dev(kf_pack[:, 13] > 0), dev(kf_v), dev(kf_bg), dev(kf_ba), dev(mp_pack[:, 0:3]),
+            dev(mp_pack[:, 3] > 0), dev(obs_pack[:, 0].astype(np.int64)), dev(obs_pack[:, 1].astype(np.int64)),
+            dev(obs_pack[:, 2:4]), dev(obs_pack[:, 5] > 0), dev(prob["obp"].astype(np.int64)),
+            pres, dev(pad(w_ok)), dev(pre_bg0), dev(pre_ba0), cam.fx, cam.fy, cam.cx, cam.cy,
+            kf_vb_fixed=dev(np.arange(K) >= len(chain)),  # every chain state's v/b is free
+        )
+        res = {k: v.cpu().numpy() for k, v in res.items()}  # waits here, outside the lock
+        out_kf = np.concatenate([res["kf_R"].reshape(K, 9), res["kf_t"]], axis=1)
+        out_obs = np.stack([res["chi2"], res["depth"]], axis=1)
+        with self.map_lock:
+            commit_ba_result((out_kf, res["mp_pos"], out_obs), prob["obs_meta"], kfs, prob["mps"],
+                             prob["kf_fixed"], m)
+            for i, kf in enumerate(chain):
+                if not kf.bad:
+                    kf.velocity = res["kf_v"][i].astype(np.float64)
+                    kf.bias_g = res["kf_bg"][i].astype(np.float64)
+                    kf.bias_a = res["kf_ba"][i].astype(np.float64)
+        self.vi_ba_ms.append(1e3 * (time.perf_counter() - t0))
+        self.vi_ba_steps.append(steps)
 
     @staticmethod
     def _record_done(x):

@@ -186,6 +186,7 @@ class KeyFrame:
         "id", "frame_id", "timestamp", "R", "t", "track_ids", "pts", "_desc", "_desc_thunk",
         "mp_ids", "image", "covis", "parent", "children", "bad",
         "map_id", "prev_kf", "next_kf", "depth_right", "uright", "Tcp",
+        "velocity", "bias_g", "bias_a",
     )
 
     _next_id = itertools.count()
@@ -238,6 +239,12 @@ class KeyFrame:
         # KeyFrame::SetBadFlag): lets trajectory savers recover culled KF
         # poses through the parent chain (System.cc:760-766).
         self.Tcp = None
+        # visual-inertial state: world velocity, gyro and accelerometer
+        # biases (None until the VI init or a VI local BA sets them)
+        self.velocity = None
+        self.bias_g = None
+        self.bias_a = None
+
     # --- pose ---------------------------------------------------------
     def center(self):
         return -(self.R.T @ self.t)
@@ -364,6 +371,11 @@ class Map:
         self.mappoints = {}
         self.culled_keyframes = {}  # id -> bad KF (poses via Tcp chain)
         self.init_kf_id = -1
+        # visual-inertial init (core/inertial.py): done, the scale it applied,
+        # and how many of its staged solves ran
+        self.imu_initialized = False
+        self.imu_scale = 1.0
+        self.imu_init_count = 0
         self.change_index = 0
         self.kf_origins = []
 

@@ -1,11 +1,15 @@
-"""System: the public SLAM facade of the port (monocular and stereo).
+"""System: the public SLAM facade of the port (monocular, stereo and
+visual-inertial monocular).
 
-Port of the monocular and stereo drives of movslam_tpu/core/system.py
-(System.h:96-189): `System(settings, MONOCULAR | STEREO, device=...)`, then
-either `track_monocular(timestamp, smv)` / `track_stereo(timestamp, left,
-right)` per frame or `track_monocular_batch(items, flush=)` /
+Port of the drives of movslam_tpu/core/system.py (System.h:96-189):
+`System(settings, MONOCULAR | STEREO | IMU_MONOCULAR, device=...)`, then
+either `track_monocular(timestamp, smv, imu=None)` / `track_stereo(timestamp,
+left, right)` per frame or `track_monocular_batch(items, flush=)` /
 `track_stereo_batch(items, flush=)` for the windowed drive, `shutdown()` and
-the trajectory savers. `activate_localization_mode()` freezes the map. Device
+the trajectory savers. An IMU_MONOCULAR system takes each frame's IMU samples
+(core/inertial.ImuBuffer rows) with the frame: `imu=` per frame, `(ts, smv,
+imu)` triples windowed; its mapper solves gravity and metric scale and runs
+the visual-inertial local BA. `activate_localization_mode()` freezes the map. Device
 work runs on `device` ("cuda" on the card; "cpu" for the tests) — a CUDA
 request without a card raises.
 
@@ -24,8 +28,8 @@ triangulation and local BA to the next window program (core/local_mapping
 deferred mode); a replay that ends a window early rewinds the track state
 on the device and feeds the remaining frames again.
 
-Not ported yet (ROADMAP Queue 1): visual-inertial, global BA, map merge and
-atlas checkpoints.
+Not ported yet (ROADMAP Queue 1): global BA, map merge and atlas
+checkpoints.
 """
 from __future__ import annotations
 
@@ -44,6 +48,7 @@ from ..ops.window_step import tracked_window_step
 from . import trajectory as traj
 from .extractor import MAX_COV, MOVExtractor
 from .frame import Frame
+from .inertial import ImuBuffer
 from .local_mapping import LocalMapping
 from .map import Atlas
 from .snapshot import MapSnapshot, build_snapshot
@@ -60,12 +65,13 @@ class System:
     IMU_MONOCULAR = IMU_MONOCULAR
 
     def __init__(self, settings, sensor=MONOCULAR, device="cuda", async_mapping=False):
-        if sensor not in (MONOCULAR, STEREO):
-            raise NotImplementedError("visual-inertial sensors: ROADMAP Queue 1, VI slice")
+        if sensor not in (MONOCULAR, STEREO, IMU_MONOCULAR):
+            raise ValueError(f"unsupported sensor {sensor!r}")
         self.device = resolve_device(device)
         self.settings = settings if isinstance(settings, Settings) else Settings.from_yaml(settings, sensor)
         self.sensor = sensor
-        Verbose.log("Input sensor set to: " + ("Stereo" if sensor == STEREO else "Monocular"))
+        Verbose.log("Input sensor set to: " + {MONOCULAR: "Monocular", STEREO: "Stereo",
+                                                IMU_MONOCULAR: "Monocular-Inertial"}[sensor])
         cam = self.settings.camera1
         self.atlas = Atlas()
         self.atlas.add_camera(cam)
@@ -73,6 +79,12 @@ class System:
             self.atlas, cam, self.device, monocular=(sensor != STEREO),
             far_points=self.settings.th_far_points, bf=self.settings.bf, stereo_b=self.settings.b,
         )
+        # Visual-inertial: the per-frame IMU sample buffer feeds the mapper's
+        # gravity/scale init and VI local BA.
+        self.imu_buffer = None
+        if sensor == IMU_MONOCULAR:
+            self.imu_buffer = self.mapper.imu_buffer = ImuBuffer()
+            self.mapper.imu_noise = (self.settings.imu_noise_gyro, self.settings.imu_noise_acc)
         self.extractor = MOVExtractor(
             threshold=self.settings.threshold,
             coverage_threshold=self.settings.coverage_threshold,
@@ -222,10 +234,17 @@ class System:
         tr.track_fused(frame, host_out, snap)
         return True
 
-    def track_monocular(self, timestamp, smv: MotionVectorImage):
+    def track_monocular(self, timestamp, smv: MotionVectorImage, imu=None):
         """System::TrackMonocular (System.cc:171-234): returns (R, t) of the
-        camera-from-world pose, or None while initializing or lost."""
+        camera-from-world pose, or None while initializing or lost.
+
+        imu: on an IMU_MONOCULAR system, the (N, 7) IMU samples [dt gx gy gz
+        ax ay az] over the interval since the previous frame."""
+        if self.sensor == STEREO:
+            raise ValueError("sensor not set to Monocular")
         self._flush_windows()
+        if self.imu_buffer is not None and imu is not None:
+            self.imu_buffer.add(self.image_count, imu)
         t0 = time.perf_counter()
         if self._reset_requested:
             self._prev_state = None
@@ -320,8 +339,9 @@ class System:
         )
 
     def track_monocular_batch(self, items, flush=True):
-        """Track a batch of (timestamp, smv) pairs; returns poses (R, t) or
-        None in stream order. Runs of OK-state P-frames go through the
+        """Track a batch of (timestamp, smv) pairs, or (timestamp, smv, imu)
+        triples on an IMU_MONOCULAR system; returns poses (R, t) or None in
+        stream order. Runs of OK-state P-frames go through the
         window program (ops/window_step); initialization, loss recovery and
         I-frames fall back to track_monocular.
 
@@ -333,7 +353,19 @@ class System:
         windows plus a partial one; call once more with flush=True, or with
         items=[], to drain). With flush=True every passed frame is resolved
         before returning."""
+        if self.imu_buffer is not None:
+            self._absorb_imu(items)
         return self._batch_drive([it[:2] for it in items], flush, per_frame=self.track_monocular)
+
+    def _absorb_imu(self, items):
+        """File the IMU samples of (ts, smv, imu) items under the frame ids the
+        items will get: the frames still buffered (_pending) and in flight
+        (_wfq) come first. A rewind feeds frames again under the same ids, so
+        it neither adds samples twice nor loses any."""
+        ahead = len(self._pending) + sum(len(wf["run"]) for wf in self._wfq)
+        for k, it in enumerate(items):
+            if len(it) == 3 and it[2] is not None:
+                self.imu_buffer.add(self.image_count + ahead + k, it[2])
 
     def track_stereo_batch(self, items, flush=True):
         """Track a batch of (timestamp, smv_left, smv_right) triples: the

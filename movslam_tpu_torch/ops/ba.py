@@ -97,6 +97,32 @@ def schur_reduce(W, g_p, g_l, Hpp, Hll, obs_kf, obs_mp, obs_by_point, lam, K, P,
     return S, rhs, Hll_inv
 
 
+def visual_linearize(R, t, X, obs_kf, obs_mp, obs_uv, obs_w, free_obs, fx, fy, cx, cy, obs_ur, bf,
+                     K, P):
+    """The reprojection edges' normal-equation blocks at (R, t, X): W (O, 6, 3),
+    gradients g_p (K, 6) and g_l (P, 3), Hpp (K, 6, 6), Hll (P, 3, 3), the
+    robust cost, chi2 and depth. free_obs (O, 1, 1) zeroes the pose Jacobian
+    of observations in fixed keyframes."""
+    r, Jp, Jl, w, chi2, z = _residual_jacobians(R, t, X, obs_kf, obs_mp, obs_uv, obs_w, fx, fy, cx, cy, obs_ur, bf)
+    Jp = Jp * free_obs
+    Jpw = Jp * w[:, None, None]
+    Jlw = Jl * w[:, None, None]
+    g_p = -_segment_sum((Jpw.transpose(1, 2) @ r[:, :, None])[..., 0], obs_kf, K)
+    g_l = -_segment_sum((Jlw.transpose(1, 2) @ r[:, :, None])[..., 0], obs_mp, P)
+    Hpp = _segment_sum(Jpw.transpose(1, 2) @ Jp, obs_kf, K)
+    Hll = _segment_sum(Jlw.transpose(1, 2) @ Jl, obs_mp, P)
+    W = Jpw.transpose(1, 2) @ Jl  # (O, 6, 3)
+    return {"W": W, "g_p": g_p, "g_l": g_l, "Hpp": Hpp, "Hll": Hll,
+            "cost": _total_cost(chi2, obs_w), "chi2": chi2, "z": z}
+
+
+def backsub_landmarks(dxi, W, Hll_inv, g_l, obs_kf, obs_mp, P, mp_valid):
+    """Back-substitute the landmark updates: dX = Hll_inv (g_l - sum W^T dxi)."""
+    Wt_dxi = _segment_sum((W.transpose(1, 2) @ dxi[obs_kf][:, :, None])[..., 0], obs_mp, P)
+    dX = (Hll_inv @ (g_l - Wt_dxi)[:, :, None])[..., 0]
+    return torch.where(torch.isfinite(dX), dX, torch.zeros_like(dX)) * mp_valid[:, None]
+
+
 def ba_solve(kf_R, kf_t, kf_fixed, kf_valid, mp_pos, mp_valid, obs_kf, obs_mp, obs_uv,
              obs_valid, obs_by_point, fx, fy, cx, cy, obs_ur=None, bf=0.0, iters=LM_ITERS):
     """LM bundle adjustment. kf_* (K, ...); mp_pos (P, 3); obs_* (O,);
@@ -116,17 +142,8 @@ def ba_solve(kf_R, kf_t, kf_fixed, kf_valid, mp_pos, mp_valid, obs_kf, obs_mp, o
     eye = torch.eye(K * 6, dtype=mp_pos.dtype, device=mp_pos.device)
 
     def linearize(R, t, X):
-        r, Jp, Jl, w, chi2, z = _residual_jacobians(R, t, X, obs_kf, obs_mp, obs_uv, obs_w, fx, fy, cx, cy, obs_ur, bf)
-        Jp = Jp * free_obs
-        Jpw = Jp * w[:, None, None]
-        Jlw = Jl * w[:, None, None]
-        g_p = -_segment_sum((Jpw.transpose(1, 2) @ r[:, :, None])[..., 0], obs_kf, K)
-        g_l = -_segment_sum((Jlw.transpose(1, 2) @ r[:, :, None])[..., 0], obs_mp, P)
-        Hpp = _segment_sum(Jpw.transpose(1, 2) @ Jp, obs_kf, K)
-        Hll = _segment_sum(Jlw.transpose(1, 2) @ Jl, obs_mp, P)
-        W = Jpw.transpose(1, 2) @ Jl  # (O, 6, 3)
-        return {"W": W, "g_p": g_p, "g_l": g_l, "Hpp": Hpp, "Hll": Hll,
-                "cost": _total_cost(chi2, obs_w), "chi2": chi2, "z": z}
+        return visual_linearize(R, t, X, obs_kf, obs_mp, obs_uv, obs_w, free_obs, fx, fy, cx, cy,
+                                obs_ur, bf, K, P)
 
     R, t, X = kf_R, kf_t, mp_pos
     lam = torch.tensor(1e-4, dtype=mp_pos.dtype, device=mp_pos.device)
@@ -139,9 +156,7 @@ def ba_solve(kf_R, kf_t, kf_fixed, kf_valid, mp_pos, mp_valid, obs_kf, obs_mp, o
         S = S * m[:, None] * m[None, :] + torch.diag(1.0 - m)
         dxi = solve_psd(S + 1e-6 * eye, rhs.reshape(-1) * m).reshape(K, 6)
         dxi = torch.where(torch.isfinite(dxi), dxi, torch.zeros_like(dxi))
-        Wt_dxi = _segment_sum((lin["W"].transpose(1, 2) @ dxi[obs_kf][:, :, None])[..., 0], obs_mp, P)
-        dX = (Hll_inv @ (lin["g_l"] - Wt_dxi)[:, :, None])[..., 0]
-        dX = torch.where(torch.isfinite(dX), dX, torch.zeros_like(dX)) * mp_valid[:, None]
+        dX = backsub_landmarks(dxi, lin["W"], Hll_inv, lin["g_l"], obs_kf, obs_mp, P, mp_valid)
         dR, dt = se3_exp(dxi)
         R_new, t_new = se3_compose(dR, dt, R, t)
         R_new = torch.where(free[:, None, None], R_new, R)

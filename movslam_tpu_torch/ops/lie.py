@@ -1,6 +1,8 @@
 """SO(3)/SE(3) operations (f32, batched over leading dims).
 
-Port of the parts of movslam_tpu/ops/lie.py the mono per-frame slice uses.
+Port of the parts of movslam_tpu/ops/lie.py the port uses. Everything here
+is safe under torch.func.vmap/jacfwd (no data-dependent control flow, no
+in-place writes).
 Poses are camera-from-world (R, t): x_cam = R @ x_world + t; tangent
 vectors are [rho (translation), phi (rotation)] like Sophus/g2o.
 """
@@ -37,6 +39,27 @@ def so3_exp(phi):
     a = torch.where(theta2 > 1e-8, torch.sin(theta) / theta, 1.0 - theta2 / 6.0)
     b = torch.where(theta2 > 1e-8, (1.0 - torch.cos(theta)) / theta2, 0.5 - theta2 / 24.0)
     return _eye3(phi) + a * K + b * (K @ K)
+
+
+def so3_log(R):
+    """(..., 3, 3) -> (..., 3), stable for small angles (angle < pi).
+
+    Both branches keep a finite forward-mode derivative, also at the identity
+    where torch.func.jacfwd takes the inertial Jacobians: the arccos input is
+    clipped strictly inside (-1, 1), and the small-angle scale 1/2 + theta^2/12
+    is written in (1 - cos) so that its derivative is polynomial. (The angle
+    keeps a trailing axis: torch.func.jacfwd promotes the tangent of a 0-d
+    tensor times a Python float to float64.)"""
+    trace = R[..., 0, 0:1] + R[..., 1, 1:2] + R[..., 2, 2:3]
+    cos_t = torch.clamp((trace - 1.0) * 0.5, -1.0, 1.0)
+    w = torch.stack(
+        [R[..., 2, 1] - R[..., 1, 2], R[..., 0, 2] - R[..., 2, 0], R[..., 1, 0] - R[..., 0, 1]],
+        dim=-1,
+    )
+    theta_l = torch.arccos(torch.clamp(cos_t, -1.0 + 1e-7, 1.0 - 1e-7))
+    scale = torch.where(cos_t > 1.0 - 1e-6, 0.5 + (1.0 - cos_t) / 6.0,
+                        theta_l / (2.0 * torch.sin(theta_l)))
+    return w * scale
 
 
 def _so3_left_jacobian(phi):

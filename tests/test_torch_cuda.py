@@ -295,3 +295,77 @@ def test_stereo_system_defaults_to_the_card(card):
     assert (kernels.score_candidates.launches - before
             == system.counts["window_frames"] + system.counts["per_frame_p"])
     assert all(kf.depth_right is not None for kf in system.atlas.current.keyframes.values())
+
+
+def test_vi_back_end_on_the_card_agrees_with_the_cpu(card):
+    """preintegrate and the gravity/scale solve on the card against the same
+    calls on the CPU, on tests/test_posegraph_imu.py's circle (constant speed,
+    identity attitude, gravity tilted, the map shrunk by 2.5; 8 windows of 100
+    samples, 12 LM iterations). The samples are exact, so the solve's final
+    cost is the f32 preintegration's own discretization error, 1.662e-7 on a
+    CPU host in both packages (JAX 1.6623e-7): a path that reads far below it
+    fits something else. Bounds: the preintegration within 1e-4 relative;
+    scale within 1e-3 relative and 2% of the truth; gravity direction, the
+    velocities (~1.2 m/s) and the biases (~1e-5) within 1e-4 absolute; the
+    final cost within 1% of the CPU's. The readings are printed (-s)."""
+    from movslam_tpu_torch.ops import imu, lie
+
+    s_true, r_c, omega, imu_dt, per_win, K = 2.5, 2.0, 0.6, 0.005, 100, 9
+    g_w = lie.so3_exp(torch.tensor([0.06, -0.04, 0.0], dtype=torch.float64)).numpy() @ [0.0, 0.0, -9.81]
+    tt = np.arange((K - 1) * per_win).reshape(K - 1, per_win) * imu_dt
+    a_w = -r_c * omega ** 2 * np.stack([np.cos(omega * tt), np.sin(omega * tt), np.zeros_like(tt)], -1)
+    acc = (a_w - g_w).astype(np.float32)
+    tk = np.arange(K) * per_win * imu_dt
+    ps = (np.stack([r_c * np.cos(omega * tk), r_c * np.sin(omega * tk), np.zeros(K)], -1) / s_true)
+    vs = r_c * omega * np.stack([-np.sin(omega * tk), np.cos(omega * tk), np.zeros(K)], -1)
+    inputs = (np.zeros_like(acc), acc, np.full((K - 1, per_win), imu_dt, np.float32),
+              np.ones((K - 1, per_win), bool), np.zeros(3, np.float32), np.zeros(3, np.float32))
+    out = {}
+    for dev in ("cpu", card):
+        args = [torch.as_tensor(x, device=dev) for x in inputs]
+        pres = imu.preintegrate(*args)
+        res = imu.inertial_gs_optimize(
+            pres, torch.eye(3, device=dev).repeat(K, 1, 1), torch.as_tensor(ps, dtype=torch.float32, device=dev),
+            torch.as_tensor(vs, dtype=torch.float32, device=dev), args[4], args[5],
+            torch.ones(K - 1, dtype=torch.bool, device=dev), iters=12)
+        out[str(dev)] = ({k: v.cpu().numpy() for k, v in pres.items()}, {k: v.cpu().numpy() for k, v in res.items()})
+        print(f"{dev}: costs {out[str(dev)][1]['costs'].tolist()} scale {float(res['scale'])} "
+              f"bg {out[str(dev)][1]['bg'].tolist()} ba {out[str(dev)][1]['ba'].tolist()}")
+    (pc, rc), (pg, rg) = out["cpu"], out[str(card)]
+    for k in pc:
+        np.testing.assert_allclose(pg[k], pc[k], rtol=1e-4, atol=1e-4 * max(np.abs(pc[k]).max(), 1e-30))
+    sc, sg = float(rc["scale"]), float(rg["scale"])
+    assert abs(sc / s_true - 1.0) < 0.02 and abs(sg / sc - 1.0) < 1e-3, (sc, sg)
+    for k in ("Rwg", "vel", "bg", "ba"):
+        print(f"{k}: max |card - cpu| {np.abs(rg[k] - rc[k]).max():.3e}")
+        np.testing.assert_allclose(rg[k], rc[k], rtol=0, atol=1e-4, err_msg=k)
+    assert abs(rg["costs"][-1] / rc["costs"][-1] - 1.0) < 1e-2, (rg["costs"], rc["costs"])
+
+
+def test_vi_system_defaults_to_the_card(card):
+    """System(settings, IMU_MONOCULAR) without device= runs on the card: 14
+    frames per frame with IMU samples, then 16 through the windowed drive, the
+    init moved earlier (vi_min_kfs = 4) so that it runs on the card."""
+    from movslam_tpu_torch.config.settings import IMU_MONOCULAR, Settings
+    from movslam_tpu_torch.core.camera import Pinhole
+    from movslam_tpu_torch.core.system import System
+    from movslam_tpu_torch.io.synthetic_vi import SyntheticVIStream
+
+    s = Settings()
+    s.camera1 = Pinhole(320.0, 320.0, 320.0, 240.0, 640, 480)
+    s.sensor = IMU_MONOCULAR
+    system = System(s, IMU_MONOCULAR)
+    assert system.device.type == "cuda"
+    system.mapper.vi_min_kfs = 4
+    items = list(SyntheticVIStream(n_points=400, seed=11).items(30))
+    before = kernels.score_candidates.launches
+    for ts, smv, imu in items[:14]:
+        system.track_monocular(ts, smv, imu=imu)
+    poses = system.track_monocular_batch(items[14:])
+    system.shutdown()
+    torch.cuda.synchronize()
+    assert system.atlas.current.imu_initialized and system.get_total_lost() == 0
+    assert len(poses) == 16 and system.image_count == 30
+    assert sorted(system.imu_buffer.by_frame) == list(range(1, 30))
+    assert (kernels.score_candidates.launches - before
+            == system.counts["window_frames"] + system.counts["per_frame_p"])

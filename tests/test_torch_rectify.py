@@ -145,8 +145,10 @@ def test_settings_stereo_yaml_errors(tmp_path):
     no_cam2.write_text(text.replace("Camera2.fx", "Camera2.fxx"))
     with pytest.raises(SettingsError, match="Camera2"):
         Settings.from_yaml(str(no_cam2), STEREO)
-    with pytest.raises(NotImplementedError, match="VI slice"):
-        Settings.from_yaml(os.path.join(REPO, "configs", "EuRoCStereo.yaml"), 3)
+    vi = Settings.from_yaml(os.path.join(REPO, "configs", "EuRoCStereo.yaml"), 3)  # read as visual-inertial
+    assert vi.sensor == 3 and not vi.need_rectify and vi.bf == 0.0 and vi.imu_noise_gyro == 1.7e-4
+    with pytest.raises(ValueError, match="sensor"):
+        Settings.from_yaml(os.path.join(REPO, "configs", "EuRoCStereo.yaml"), 2)
     mono = Settings.from_yaml(os.path.join(REPO, "configs", "EuRoCStereo.yaml"))  # read as monocular
     assert not mono.need_rectify and mono.bf == 0.0 and mono.camera2 is not None
 

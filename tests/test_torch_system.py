@@ -157,6 +157,19 @@ def test_runs_with_jax_flax_yaml_cv2_blocked(tmp_path):
         ssys.shutdown()
         assert ssys.tracking.state.name == "OK" and ssys.atlas.current.n_mappoints() > 100
         assert ssys.tracking.last_kf.depth_right is not None
+        from movslam_tpu_torch.config.settings import IMU_MONOCULAR
+        from movslam_tpu_torch.core import inertial
+        from movslam_tpu_torch.io.synthetic_vi import SyntheticVIStream
+        from movslam_tpu_torch.ops import imu, vi_ba
+        s.sensor = IMU_MONOCULAR
+        visys = System(s, IMU_MONOCULAR, device="cpu")
+        vstream = SyntheticVIStream(n_points=400, seed=11)
+        for k in range(3):
+            smv = vstream.frame(k)
+            visys.track_monocular(smv.timestamp, smv, imu=vstream.imu_window(k))
+        visys.track_monocular_batch(list(vstream.items(2, start=3)))
+        visys.shutdown()
+        assert sorted(visys.imu_buffer.by_frame) == [1, 2, 3, 4], visys.imu_buffer.by_frame.keys()
         blocked = ("jax", "jaxlib", "flax", "yaml", "cv2", "movslam_tpu")
         loaded = [m for m in sys.modules if m.split(".")[0] in blocked]
         assert all(sys.modules[m] is None for m in loaded), loaded
@@ -196,8 +209,12 @@ def test_device_is_explicit():
         with pytest.raises(RuntimeError, match="cuda"):  # stereo defaults to the card too
             System(port_settings(), System.STEREO)
     assert System(port_settings(), System.STEREO, device="cpu").device.type == "cpu"
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        System(port_settings(), System.IMU_MONOCULAR, device="cpu")
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="cuda"):  # and so does the visual-inertial sensor
+            System(port_settings(), System.IMU_MONOCULAR)
+    assert System(port_settings(), System.IMU_MONOCULAR, device="cpu").mapper.imu_buffer is not None
+    with pytest.raises(ValueError, match="sensor"):
+        System(port_settings(), 2, device="cpu")
     with pytest.raises(ValueError, match="Stereo"):
         System(port_settings(), MONOCULAR, device="cpu").track_stereo_batch([])
     with pytest.raises(TypeError):  # nothing picks the CPU on its own

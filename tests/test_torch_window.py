@@ -115,8 +115,12 @@ def test_later_slices_name_their_queue_item():
         system.track_stereo(0.0, None, None)
     with pytest.raises(NotImplementedError, match="global BA slice"):
         system.global_bundle_adjustment()
-    with pytest.raises(NotImplementedError, match="VI slice"):
-        System(port_settings(), System.IMU_MONOCULAR, device="cpu")
+    vi = System(port_settings(), System.IMU_MONOCULAR, device="cpu")  # the VI slice is ported
+    assert vi.imu_buffer is vi.mapper.imu_buffer and system.imu_buffer is None
+    with pytest.raises(ValueError, match="Stereo"):
+        vi.track_stereo(0.0, None, None)
+    with pytest.raises(ValueError, match="Monocular"):
+        System(port_settings(), System.STEREO, device="cpu").track_monocular(0.0, None)
     assert system.localization_mode_active() is False
     system.activate_localization_mode()
     assert system.tracking.only_tracking is True
