@@ -71,6 +71,24 @@ Phases (any failure exits nonzero and prints no result line):
                least one _local_ba_vi call there, 0 lost and every frame
                answered from the init on, and score_candidates launched once
                for every P-frame dispatched.
+  8. atlas   : the Atlas back end on phase 3's map. (a) save_atlas, then
+               load_atlas: the same keyframe and point counts, poses and
+               points bit-equal; the ms of each step and the file's bytes.
+               (b) the loaded copy as the old map and a re-keyed copy moved
+               by a known Sim3 (s = 1.7) as the new one
+               (tests/test_map_merge.py::_build_map_pair), welded by
+               map_merge.try_merge(device="cuda"): one map left, median
+               welded-point error < 0.05 m; ms, and the pose graph's launches
+               under torch.profiler. (c) System.global_bundle_adjustment(
+               iters=20), timed on a System resumed from the checkpoint and
+               profiled on phase 3's own: everything finite, mean
+               reprojection error <= 1.5x before + 1e-6; post-hoc ATE before
+               and after, printed. (d) global BA at the reference's caps: a
+               synthetic map (tests/test_global_ba.py::_build_map) of 512
+               keyframes, 16,384 points, every one observed, and 128
+               observations per keyframe, 20 iterations: the map at those
+               caps, every non-anchor keyframe moved, finite, the
+               reprojection error fell; ms, peak device memory, launches.
 Before the last line it prints the card's name and power limit and one JSON
 line describing each kernel; the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -97,6 +115,8 @@ PF_TIMED = 24  # phase 5: timed frames of the per-frame comparison drive
 S_PER_FRAME, S_WARM, S_TIMED, S_PROFILED = 25, 16, 48, 8  # phase 6, in stereo pairs
 STEREO_B, STEREO_BF = 0.25, 80.0
 VI_PER_FRAME, VI_WINDOWED, VI_PROFILED, VI_MIN_KFS = 60, 96, 8, 8  # phase 7, in frames
+MERGE_SIM3 = (1.7, [0.05, -0.3, 0.1], [2.0, -1.0, 0.5])  # phase 8 (b): s, rotation vector, t
+GBA_TOP_KF, GBA_TOP_MP, GBA_TOP_PER_KF = 512, 16384, 128  # phase 8 (d): the reference's global-BA caps
 PROF_STAGES = ("disp_pack_host", "disp_upload", "disp_commit_snap", "disp_jit_call", "disp_tail",
                "rep_wire_pull", "rep_pre", "rep_track_fused")
 GRAPH_LAUNCHES = 200
@@ -835,6 +855,265 @@ def vi_phase(System, settings, sensor, SyntheticVIStream, kernels, card):
         fail(f"vi gates failed: {bad}")
     return {"per_frame": pf, "windowed": wd, "one_call": one}
 
+def mean_reprojection(m, cam):
+    """Mean squared reprojection error (px^2) over every observation of a good
+    map point in front of its keyframe (tests/test_system_features.py's
+    measure)."""
+    import numpy as np
+
+    errs = []
+    for kf in m.keyframes.values():
+        slots = np.flatnonzero(kf.mp_ids >= 0)
+        mps = [m.mappoints.get(int(kf.mp_ids[s])) for s in slots]
+        keep = [i for i, mp in enumerate(mps) if mp is not None and not mp.bad]
+        if not keep:
+            continue
+        pc = np.stack([mps[i].pos for i in keep]) @ kf.R.T + kf.t
+        uv = kf.pts[slots[keep]]
+        ok = pc[:, 2] > 1e-6
+        u = cam.fx * pc[ok, 0] / pc[ok, 2] + cam.cx
+        v = cam.fy * pc[ok, 1] / pc[ok, 2] + cam.cy
+        errs.append((u - uv[ok, 0]) ** 2 + (v - uv[ok, 1]) ** 2)
+    return float(np.concatenate(errs).mean())
+
+
+def map_copy_moved(checkpoint, path):
+    """The map in the checkpoint, loaded, moved by a known Sim3 (s = 1.7:
+    x_new = R^T (x_old - t) / s) and re-keyed past the original's ids: the
+    "new map" of tests/test_map_merge.py::_build_map_pair."""
+    import numpy as np
+    import torch
+
+    from movslam_tpu_torch.ops.lie import so3_exp
+
+    m = checkpoint.load_atlas(path).current
+    s, R, t = MERGE_SIM3[0], so3_exp(torch.tensor(MERGE_SIM3[1], dtype=torch.float64)).numpy(), \
+        np.array(MERGE_SIM3[2])
+    for kf in m.keyframes.values():
+        kf.set_pose(kf.R @ R, (kf.t + kf.R @ t) / s)
+    for mp in m.mappoints.values():
+        mp.pos = R.T @ (mp.pos - t) / s
+    off_kf, off_mp = max(m.keyframes) + 1000, max(m.mappoints) + 100000
+    m.keyframes = {k + off_kf: kf for k, kf in m.keyframes.items()}
+    for k, kf in m.keyframes.items():
+        kf.id = k
+        kf.covis = {c + off_kf: w for c, w in kf.covis.items()}
+        kf.mp_ids = np.where(kf.mp_ids >= 0, kf.mp_ids + off_mp, -1)
+    m.mappoints = {k + off_mp: mp for k, mp in m.mappoints.items()}
+    for k, mp in m.mappoints.items():
+        mp.id = k
+        mp.obs = {kf_id + off_kf: slot for kf_id, slot in mp.obs.items()}
+        mp.first_kf_id += off_kf
+    m.init_kf_id += off_kf
+    return m
+
+
+def top_bucket_map(n_kf, n_mp, per_kf, seed=0, noise=5e-3):
+    """tests/test_global_ba.py::_build_map at the reference's global-BA caps:
+    a circular trajectory of n_kf keyframes around a point cloud, each
+    keyframe observing per_kf points drawn from those it sees; poses (but the
+    first) and points perturbed so that BA has something to correct. Every
+    point is observed: each is first given to the least-loaded keyframe that
+    sees it (the points seen by the fewest keyframes first), and each keyframe
+    fills its other slots at random from the rest of what it sees."""
+    import types
+
+    import numpy as np
+
+    from movslam_tpu_torch.core.camera import Pinhole
+    from movslam_tpu_torch.core.map import KeyFrame, Map, MapPoint
+
+    rng = np.random.default_rng(seed)
+    cam = Pinhole(300.0, 300.0, 160.0, 120.0, 320, 240)
+    m = Map()
+    X = rng.uniform(-4, 4, (n_mp, 3))
+    X[:, 2] += 12.0
+    a = np.arange(n_kf) / n_kf
+    t_cws = -np.stack([3 * np.sin(2 * np.pi * a), 3 * np.cos(2 * np.pi * a), -1.0 + 2 * a], axis=1)
+    pc = X[None] + t_cws[:, None]  # (n_kf, n_mp, 3)
+    u, v = cam.fx * pc[..., 0] / pc[..., 2] + cam.cx, cam.fy * pc[..., 1] / pc[..., 2] + cam.cy
+    seen = (pc[..., 2] > 1) & (u >= 0) & (u < 320) & (v >= 0) & (v < 240)
+    if not seen.any(axis=0).all():
+        fail("top_bucket_map: a point no keyframe sees")
+    owner, load = np.empty(n_mp, np.int64), np.zeros(n_kf, np.int64)
+    for j in np.argsort(seen.sum(axis=0), kind="stable"):
+        ks = np.flatnonzero(seen[:, j])
+        owner[j] = ks[np.argmin(load[ks])]
+        load[owner[j]] += 1
+    owned = [np.flatnonzero(owner == k) for k in range(n_kf)]
+    kfs, sels = [], []
+    for k in range(n_kf):
+        t_cw = t_cws[k]
+        rest = np.setdiff1d(np.flatnonzero(seen[k]), owned[k])
+        if len(owned[k]) > per_kf or len(owned[k]) + len(rest) < per_kf:
+            fail(f"top_bucket_map: keyframe {k} owns {len(owned[k])} points and sees {len(rest)} more")
+        sel = np.sort(np.concatenate([owned[k], rng.choice(rest, per_kf - len(owned[k]), replace=False)]))
+        u_k, v_k = u[k], v[k]
+        frame = types.SimpleNamespace(
+            id=k, timestamp=k / 10.0, R=np.eye(3), t=t_cw, track_ids=sel.astype(np.int64),
+            pts=np.stack([u_k[sel], v_k[sel]], axis=1), desc=None, mappoints=[None] * per_kf, image=None,
+            depth_right=None, uright=None)
+        kf = KeyFrame(frame, m.id)
+        m.add_keyframe(kf)
+        kfs.append(kf)
+        sels.append(sel)
+    mps = [MapPoint(X[j] + rng.normal(0, noise, 3), kfs[0].id, j, m.id) for j in range(n_mp)]
+    for kf, sel in zip(kfs, sels):
+        for slot, j in enumerate(sel):
+            mps[j].add_observation(kf, slot)
+            kf.mp_ids[slot] = mps[j].id
+    for mp in mps:
+        m.add_mappoint(mp)
+    for kf in kfs[1:]:
+        kf.set_pose(kf.R, kf.t + rng.normal(0, noise * 4, 3))
+    return m, cam
+
+
+def atlas_phase(System, settings, monocular, system, stream, card):
+    """Phase 8 (see the module docstring). `system` is phase 3's, after its
+    drive. Returns the numbers it printed."""
+    import tempfile
+
+    import numpy as np
+    import torch
+    from torch.profiler import profile
+
+    from movslam_tpu_torch.core import checkpoint, local_mapping, map_merge
+
+    def synced(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, 1e3 * (time.perf_counter() - t0)
+
+    def profiled(fn):
+        with profile(activities=drive_activities()) as prof:
+            out, wall = synced(fn)
+        host, _, busy = launch_counts(prof, 1)
+        return out, {"host_launches": host, "busy_ms": busy, "wall_ms_profiled": wall}
+
+    def posthoc_ate(sys_):
+        traj = sys_.frame_trajectory()
+        gt = lambda k: -(stream.gt_pose(k)[0].T @ stream.gt_pose(k)[1])  # noqa: E731
+        return umeyama_ate([gt(round(ts * 30.0)) for ts, _, _, _ in traj], [-(R.T @ t) for _, R, t, _ in traj])
+
+    out, checks = {}, {}
+    m = system.atlas.current
+    with tempfile.TemporaryDirectory() as tmp:
+        # (a) the checkpoint round trip
+        path = os.path.join(tmp, "phase3.atlas")
+        _, save_ms = synced(lambda: system.save_atlas(path))
+        loaded, load_ms = synced(lambda: checkpoint.load_atlas(path))
+        m2 = loaded.current
+        out["checkpoint"] = {"save_ms": save_ms, "load_ms": load_ms, "bytes": os.path.getsize(path),
+                             "keyframes": m.n_keyframes(), "map_points": m.n_mappoints()}
+        checks["checkpoint: counts equal"] = (m2.n_keyframes(), m2.n_mappoints()) == (m.n_keyframes(),
+                                                                                      m.n_mappoints())
+        checks["checkpoint: poses and points bit-equal"] = sorted(m2.keyframes) == sorted(m.keyframes) and all(
+            np.array_equal(m2.keyframes[k].R, kf.R) and np.array_equal(m2.keyframes[k].t, kf.t)
+            for k, kf in m.keyframes.items()) and all(
+            np.array_equal(m2.mappoints[k].pos, mp.pos) for k, mp in m.mappoints.items())
+
+        # (b) the merge: the loaded copy is the old map, a moved copy the new
+        merge = {}
+        for label in ("first", "timed", "profiled"):  # the first call warms torch.func up
+            atlas = loaded if label == "first" else checkpoint.load_atlas(path)
+            old_pos = {mp.track_id: mp.pos.copy() for mp in atlas.current.mappoints.values() if not mp.bad}
+            new = map_copy_moved(checkpoint, path)
+            atlas.maps.append(new)
+            atlas.current = new
+            call = lambda: map_merge.try_merge(atlas, device="cuda")  # noqa: E731
+            if label == "profiled":
+                merged, merge["pose_graph"] = profiled(call)
+            else:
+                merged, merge[f"{label}_ms"] = synced(call)
+            errs = [np.linalg.norm(mp.pos - old_pos[mp.track_id]) for mp in atlas.current.mappoints.values()
+                    if not mp.bad and mp.track_id in old_pos]
+            merge[f"{label}_median_weld_error_m"] = float(np.median(errs))
+            merge[f"{label}_maps_left"] = len(atlas.maps)
+            checks[f"merge ({label}): welded, one map left"] = merged and len(atlas.maps) == 1
+            checks[f"merge ({label}): median welded-point error < 0.05 m"] = np.median(errs) < 0.05
+        out["merge"] = merge
+
+        # (c) System.global_bundle_adjustment(iters=20): unprofiled on a system
+        # resumed from the checkpoint, profiled on the drive's own system
+        resumed = System(settings, monocular, device="cuda")
+        resumed.load_atlas(path)
+        before = mean_reprojection(resumed.atlas.current, resumed.mapper.camera)
+        _, gba_ms = synced(lambda: resumed.global_bundle_adjustment(iters=20))
+        after_resumed = mean_reprojection(resumed.atlas.current, resumed.mapper.camera)
+    ate_before = posthoc_ate(system)
+    _, gba_prof = profiled(lambda: system.global_bundle_adjustment(iters=20))
+    after = mean_reprojection(m, system.mapper.camera)
+    out["global_ba_drive_map"] = {
+        "keyframes": m.n_keyframes(), "map_points": m.n_mappoints(), "ms": gba_ms, **gba_prof,
+        "mean_reproj_px2_before": before, "mean_reproj_px2_after": after,
+        "mean_reproj_px2_after_resumed": after_resumed, "posthoc_ate_before_m": ate_before,
+        "posthoc_ate_after_m": posthoc_ate(system)}
+    for label, kfs_, mps_, err in (("resumed", resumed.atlas.current.keyframes.values(),
+                                    resumed.atlas.current.mappoints.values(), after_resumed),
+                                   ("drive", m.keyframes.values(), m.mappoints.values(), after)):
+        checks[f"global BA ({label}): finite"] = all(np.isfinite(kf.t).all() and np.isfinite(kf.R).all()
+                                                     for kf in kfs_) and all(np.isfinite(mp.pos).all() for mp in mps_)
+        checks[f"global BA ({label}): mean reprojection error <= 1.5x before + 1e-6"] = err <= before * 1.5 + 1e-6
+
+    # (d) global BA at the reference's caps (one window, the top bucket)
+    top = {}
+    for label in ("timed", "profiled"):
+        tm, cam = top_bucket_map(GBA_TOP_KF, GBA_TOP_MP, GBA_TOP_PER_KF)
+        kfs = sorted(tm.keyframes.values(), key=lambda kf: kf.id)
+        t_before = {kf.id: kf.t.copy() for kf in kfs}
+        cost_before = mean_reprojection(tm, cam)
+        call = lambda: local_mapping.global_bundle_adjustment(tm, cam, device="cuda", iters=20)  # noqa: E731
+        if label == "timed":
+            torch.cuda.reset_peak_memory_stats()
+            _, top["ms"] = synced(call)
+            top["peak_memory_bytes"] = torch.cuda.max_memory_allocated()
+        else:
+            _, top["profiled"] = profiled(call)
+        moved = sum(np.abs(kf.t - t_before[kf.id]).max() > 1e-9 for kf in kfs[1:])
+        cost_after = mean_reprojection(tm, cam)
+        top.update({f"{label}_moved_keyframes": int(moved), f"{label}_mean_reproj_px2_before": cost_before,
+                    f"{label}_mean_reproj_px2_after": cost_after})
+        checks[f"top-bucket global BA ({label}): every non-anchor keyframe moved"] = moved >= len(kfs) - 2
+        checks[f"top-bucket global BA ({label}): finite"] = all(np.isfinite(kf.t).all() for kf in kfs) and all(
+            np.isfinite(mp.pos).all() for mp in tm.mappoints.values())
+        checks[f"top-bucket global BA ({label}): the cost fell"] = cost_after < cost_before
+    n_obs = sum(int((kf.mp_ids >= 0).sum()) for kf in tm.keyframes.values())
+    K = local_mapping._bucket(len(tm.keyframes), local_mapping.GBA_KF_BUCKETS[0], local_mapping.GBA_KF_BUCKETS[-1])
+    top.update({"keyframes": len(tm.keyframes), "map_points": tm.n_mappoints(), "observations": n_obs,
+                "kf_bucket": K, "schur_dim": 6 * K})
+    checks["top-bucket map at the caps"] = (len(tm.keyframes), tm.n_mappoints(), n_obs) == (
+        GBA_TOP_KF, GBA_TOP_MP, GBA_TOP_KF * GBA_TOP_PER_KF)
+    out["global_ba_top_bucket"] = top
+
+    c, mg, g, tp = out["checkpoint"], out["merge"], out["global_ba_drive_map"], top
+    print(f"atlas: (a) checkpoint of phase 3's map ({c['keyframes']} keyframes, {c['map_points']} map points): "
+          f"save {c['save_ms']:.2f} ms, load {c['load_ms']:.2f} ms, {c['bytes']} bytes on {card}", flush=True)
+    print(f"atlas: (b) merge of a moved copy (s = {MERGE_SIM3[0]}): try_merge {mg['timed_ms']:.2f} ms (first call "
+          f"{mg['first_ms']:.2f} ms), median welded-point "
+          f"error {mg['timed_median_weld_error_m']:.5f} m, {mg['timed_maps_left']} map left; under the profiler "
+          f"{mg['pose_graph']['host_launches']:.0f} launch calls, device busy {mg['pose_graph']['busy_ms']:.2f} ms, "
+          f"{mg['pose_graph']['wall_ms_profiled']:.2f} ms on {card}", flush=True)
+    print(f"atlas: (c) System.global_bundle_adjustment(iters=20) on the drive's map ({g['keyframes']} keyframes, "
+          f"{g['map_points']} map points): {g['ms']:.2f} ms (resumed from the checkpoint); under the profiler "
+          f"{g['host_launches']:.0f} launch calls, device busy {g['busy_ms']:.2f} ms, {g['wall_ms_profiled']:.2f} ms; "
+          f"mean reprojection {g['mean_reproj_px2_before']:.4f} -> {g['mean_reproj_px2_after']:.4f} px^2 "
+          f"(resumed {g['mean_reproj_px2_after_resumed']:.4f}); post-hoc ATE {g['posthoc_ate_before_m']:.4f} -> "
+          f"{g['posthoc_ate_after_m']:.4f} m on {card}", flush=True)
+    print(f"atlas: (d) global BA at the caps ({tp['keyframes']} keyframes -> bucket {tp['kf_bucket']}, Schur "
+          f"{tp['schur_dim']}^2, {tp['map_points']} map points, {tp['observations']} observations, 20 iterations): "
+          f"{tp['ms']:.2f} ms, peak {tp['peak_memory_bytes'] / 2**30:.3f} GiB allocated; under the profiler "
+          f"{tp['profiled']['host_launches']:.0f} launch calls, device busy {tp['profiled']['busy_ms']:.2f} ms, "
+          f"{tp['profiled']['wall_ms_profiled']:.2f} ms; moved {tp['timed_moved_keyframes']} keyframes, mean "
+          f"reprojection {tp['timed_mean_reproj_px2_before']:.4f} -> {tp['timed_mean_reproj_px2_after']:.4f} px^2 "
+          f"on {card}", flush=True)
+    bad = [name for name, ok in checks.items() if not ok]
+    if bad:
+        fail(f"atlas gates failed: {bad}")
+    return out
+
 
 def main():
     try:
@@ -1055,6 +1334,10 @@ def main():
     vs.sensor = IMU_MONOCULAR
     vi = vi_phase(System, vs, IMU_MONOCULAR, SyntheticVIStream, kernels, card)
     phase_done("vi")
+
+    # --- 8. the Atlas back end on phase 3's map -------------------------------------
+    atlas = atlas_phase(System, s, MONOCULAR, system, stream, card)
+    phase_done("atlas")
     check_banned()
 
     src = "movslam_tpu_torch/csrc/score_blocks.cu"
@@ -1084,6 +1367,7 @@ def main():
     print(json.dumps({"windowed_drive": win, "card": card}), flush=True)
     print(json.dumps({"stereo_drive": ste, "card": card}), flush=True)
     print(json.dumps({"vi_drive": vi, "card": card}), flush=True)
+    print(json.dumps({"atlas": atlas, "card": card}), flush=True)
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),

@@ -78,6 +78,10 @@ class Settings:
     # IMU.Frequency are not read.
     imu_noise_gyro: float = 1.7e-4
     imu_noise_acc: float = 2e-3
+    # atlas checkpoints (core/checkpoint.py): loaded by System at start,
+    # saved at shutdown (System.LoadAtlasFromFile / SaveAtlasToFile)
+    load_atlas: str | None = None
+    save_atlas: str | None = None
 
     @property
     def th_depth_m(self):
@@ -161,6 +165,8 @@ class Settings:
         s.th_far_points = opt("System.thFarPoints", 0.0)
         s.imu_noise_gyro = opt("IMU.NoiseGyro", s.imu_noise_gyro)
         s.imu_noise_acc = opt("IMU.NoiseAcc", s.imu_noise_acc)
+        s.load_atlas = opt("System.LoadAtlasFromFile", None, str)
+        s.save_atlas = opt("System.SaveAtlasToFile", None, str)
         return s
 
     def _precompute_rectification(self):

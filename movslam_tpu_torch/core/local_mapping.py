@@ -23,11 +23,15 @@ Visual-inertial (`imu_buffer` set by System for IMU_MONOCULAR): at 6, 12 and
 24 keyframes (`vi_min_kfs` * 2^stage) the gravity/scale init
 (core/inertial.py) re-expresses the map metric; once it has run, the
 per-frame mode's local BA is the joint visual-inertial one (`_local_ba_vi`,
-ops/vi_ba.py) over the temporal keyframe chain, committed at once. Map merge
-is a later slice of ROADMAP Queue 1 and raises NotImplementedError.
+ops/vi_ba.py) over the temporal keyframe chain, committed at once.
+
+When tracking loss has spawned a new map, every fifth keyframe of it tries
+to weld it back into an older map (core/map_merge.py). Global BA
+(`global_bundle_adjustment`) optimizes every keyframe of a map at once.
 """
 from __future__ import annotations
 
+import contextlib
 import threading
 import time
 
@@ -42,6 +46,7 @@ from ..ops.triangulate import MAX_PAIRS, triangulate_pairs_np
 from ..ops.vi_ba import vi_ba_solve
 from .inertial import _stack_windows, preintegrate_windows, visual_inertial_init
 from .map import MapPoint, update_normals_batch
+from .map_merge import try_merge
 from .matcher import FuseCandidates, fuse, search_for_triangulation
 from .verbose import Verbose
 
@@ -189,6 +194,77 @@ def commit_ba_result(res, obs_meta, kfs, mps, kf_fixed, m):
             alive.append(mp)
     update_normals_batch(alive, m)
     m.bump_change()
+
+
+# Global-BA capacities: bucketed keyframe counts and larger point and
+# observation caps than local BA. As in the reference, _bucket doubles from
+# the first entry up to the last, so the buckets are 48, 96, 192, 384 and 768:
+# 385-512 keyframes pad to 768, a 4608 x 4608 Schur system.
+GBA_KF_BUCKETS = (48, 96, 192, 384, 512)
+GBA_MAX_MP = 16384
+GBA_MAX_OBS = 65536
+
+
+def global_bundle_adjustment(m, camera, *, device, bf=0.0, iters=20, map_lock=None):
+    """Full-map bundle adjustment (Optimizer::BundleAdjustment /
+    System::GlobalBundleAdjustment, Optimizer.cc:61-395, System.cc:162-169):
+    every good keyframe optimized (the origin fixed), every good map point,
+    `iters` LM iterations on `device`, written back under `map_lock`. The
+    keyframe count is bucketed; a map beyond the largest bucket runs in
+    overlapping windows, each anchored by the keyframes it shares with the
+    one before, so every keyframe is still optimized. bf (baseline * fx)
+    adds the stereo row."""
+    kfs = sorted((kf for kf in m.keyframes.values() if not kf.bad), key=lambda k: k.id)
+    if not kfs:
+        return
+    max_kf = GBA_KF_BUCKETS[-1]
+    windows = [(kfs[:max_kf], 0)]  # (keyframes, number of leading fixed anchors)
+    if len(kfs) > max_kf:
+        # At most half a window overlaps, so the step stays positive for
+        # small buckets.
+        overlap = min(64, max_kf // 2)
+        step = max_kf - overlap
+        i = step
+        while i + overlap < len(kfs):
+            windows.append((kfs[i:i + max_kf], overlap))
+            i += step
+        Verbose.log(f"GlobalBA: {len(kfs)} keyframes -> {len(windows)} overlapping windows of <= {max_kf}")
+    for w_kfs, n_anchor in windows:
+        _gba_window(m, camera, w_kfs, n_anchor, device, bf, iters, map_lock)
+
+
+def _gba_window(m, camera, kfs, n_anchor, device, bf, iters, map_lock):
+    """One global-BA window: kfs[:n_anchor] fixed (the previous window's
+    keyframes; 0 in the first window, where the init keyframe anchors),
+    every other keyframe optimized."""
+    K = _bucket(len(kfs), GBA_KF_BUCKETS[0], GBA_KF_BUCKETS[-1])
+    kf_ids = {kf.id for kf in kfs}
+    mps, seen = [], set()
+    for kf in kfs:
+        for mid in kf.mp_ids:
+            if mid >= 0 and mid not in seen:
+                seen.add(int(mid))
+                mp = m.mappoints.get(int(mid))
+                if mp is not None and not mp.bad:
+                    mps.append(mp)
+    if len(mps) > GBA_MAX_MP:
+        Verbose.log(f"GlobalBA: truncating {len(mps)} map points to {GBA_MAX_MP}")
+        mps = mps[:GBA_MAX_MP]
+    # Gauge: the init keyframe when the window holds it, else its first.
+    anchor_id = m.init_kf_id if m.init_kf_id in kf_ids else kfs[0].id
+    # Fixed anchors go last: assemble_ba_problem fixes kfs[n_opt:].
+    ordered = kfs[n_anchor:] + kfs[:n_anchor]
+    prob = assemble_ba_problem(ordered, len(kfs) - n_anchor, mps, anchor_id, K,
+                               p_lo=512, p_hi=GBA_MAX_MP, o_lo=2048, o_hi=GBA_MAX_OBS)
+    if prob is None:
+        return
+    wire, (Kw, Pw, Ow, mopp) = problem_wire(prob)
+    res = ba_solve_wire(torch.as_tensor(wire, device=device),
+                        [camera.fx, camera.fy, camera.cx, camera.cy], bf,
+                        K=Kw, P=Pw, O=Ow, MOPP=mopp, iters=iters)
+    res = split_ba_wire(res.cpu().numpy(), Kw, Pw, Ow)  # waits here, outside the lock
+    with map_lock if map_lock is not None else contextlib.nullcontext():
+        commit_ba_result(res, prob["obs_meta"], ordered, prob["mps"], prob["kf_fixed"], m)
 
 
 class LocalMapping:
@@ -385,11 +461,13 @@ class LocalMapping:
             self.lba_count += 1
         if self.imu_buffer is not None:
             self._staged_vi_init(m)
-        if (len(self.atlas.maps) > 1 and m.n_keyframes() >= 5
-                and m.n_keyframes() % 5 == 0):
-            raise NotImplementedError(
-                "multi-map welding (core/map_merge.py): ROADMAP Queue 1, pose graph / map merge slice"
-            )
+        # Multi-map welding: when tracking loss spawned a new map and enough
+        # tracks are shared, merge it back (Sim3 + pose-graph relaxation).
+        if len(self.atlas.maps) > 1 and m.n_keyframes() >= 5 and m.n_keyframes() % 5 == 0:
+            self._commit_deferred()
+            with self.map_lock:
+                self._commit_pending_ba()
+                try_merge(self.atlas, device=self.device)
 
     def _staged_vi_init(self, m):
         """The gravity/scale init, staged like ORB-SLAM3's repeated inertial

@@ -9,7 +9,11 @@ left, right)` per frame or `track_monocular_batch(items, flush=)` /
 the trajectory savers. An IMU_MONOCULAR system takes each frame's IMU samples
 (core/inertial.ImuBuffer rows) with the frame: `imu=` per frame, `(ts, smv,
 imu)` triples windowed; its mapper solves gravity and metric scale and runs
-the visual-inertial local BA. `activate_localization_mode()` freezes the map. Device
+the visual-inertial local BA. `activate_localization_mode()` freezes the map;
+`global_bundle_adjustment()` optimizes every keyframe of the active map;
+`save_atlas(path)` / `load_atlas(path)` write and read an atlas checkpoint
+(core/checkpoint.py), also at start and shutdown when the settings name a
+file. Device
 work runs on `device` ("cuda" on the card; "cpu" for the tests) — a CUDA
 request without a card raises.
 
@@ -27,9 +31,6 @@ machine when its wire is pulled. Keyframes made at replay hand their
 triangulation and local BA to the next window program (core/local_mapping
 deferred mode); a replay that ends a window early rewinds the track state
 on the device and feeds the remaining frames again.
-
-Not ported yet (ROADMAP Queue 1): global BA, map merge and atlas
-checkpoints.
 """
 from __future__ import annotations
 
@@ -46,10 +47,11 @@ from ..ops.frame_step import N_SCALARS, SNAP_CAP, packed_cols, tracked_frame_ste
 from ..ops.mapper_step import C_PATCH, MAPPER_SMALL, P_PATCH, split_mapper_wire
 from ..ops.window_step import tracked_window_step
 from . import trajectory as traj
+from .checkpoint import load_atlas, save_atlas
 from .extractor import MAX_COV, MOVExtractor
 from .frame import Frame
 from .inertial import ImuBuffer
-from .local_mapping import LocalMapping
+from .local_mapping import LocalMapping, global_bundle_adjustment
 from .map import Atlas
 from .snapshot import MapSnapshot, build_snapshot
 from .stereo import compute_stereo_depth
@@ -128,6 +130,12 @@ class System:
         self.async_mapping = async_mapping
         if async_mapping:
             self.mapper.start_thread()
+
+        if self.settings.load_atlas:
+            try:
+                self.load_atlas(self.settings.load_atlas)
+            except FileNotFoundError:
+                Verbose.log(f"Atlas file not found: {self.settings.load_atlas}")
 
     # ------------------------------------------------------------------
     def _build_reloc(self):
@@ -841,7 +849,15 @@ class System:
         return self._frame_done(t0)
 
     def global_bundle_adjustment(self, iters=20, mesh=None):
-        raise NotImplementedError("global BA: ROADMAP Queue 1, pose graph / map merge / global BA slice")
+        """Full-map BA over the active map (System::GlobalBundleAdjustment,
+        System.cc:162-169): the mapper is drained and its work in flight
+        committed, then every keyframe is optimized (the origin fixed) on
+        this system's device and written back under the map lock."""
+        if mesh is not None:
+            raise NotImplementedError("global BA over a device mesh: ROADMAP Queue 1, parallel/ slice")
+        self.mapper.spin(final=True)
+        global_bundle_adjustment(self.atlas.current, self.mapper.camera, device=self.device,
+                                 bf=self.mapper.bf, iters=iters, map_lock=self.mapper.map_lock)
 
     # --- control ---------------------------------------------------------
     def reset_active_map(self):
@@ -878,6 +894,8 @@ class System:
         if self.async_mapping:
             self.mapper.stop_thread()
         self.mapper.spin(final=True)
+        if self.settings.save_atlas:
+            self.save_atlas(self.settings.save_atlas)
 
     # --- counters (results.txt contract) ---------------------------------
     def get_total_lost(self):
@@ -888,6 +906,21 @@ class System:
 
     def mean_track_ms(self):
         return float(np.mean(self.track_ms)) if self.track_ms else 0.0
+
+    def get_timings(self):
+        """Per-stage host times in ms, as n / mean / p50 / p95 (the
+        reference's REGISTER_TIMES, Tracking.h:165-178, LocalMapping.h:107-123)."""
+        def stats(xs):
+            if not xs:
+                return {"n": 0}
+            a = np.asarray(xs)
+            return {"n": len(a), "mean": float(a.mean()), "p50": float(np.percentile(a, 50)),
+                    "p95": float(np.percentile(a, 95))}
+
+        out = {k: stats(v) for k, v in self.tracking.timings.items()}
+        out["frame_total"] = stats(self.track_ms)
+        out["local_ba"] = stats(self.mapper.lba_ms)
+        return out
 
     # --- savers ------------------------------------------------------------
     def save_keyframe_trajectory_kitti(self, filename):
@@ -912,3 +945,16 @@ class System:
 
     def save_point_cloud(self, filename):
         traj.save_point_cloud(self.atlas, filename)
+
+    # --- checkpoint (System::SaveAtlas / LoadAtlas, System.cc:1014-1098) ------
+    def save_atlas(self, filename):
+        save_atlas(self.atlas, filename)
+        Verbose.log(f"Atlas saved to {filename}")
+
+    def load_atlas(self, filename):
+        """Replace the atlas with the one in the file; the mapper and the
+        tracker work on it from the next frame on."""
+        self.atlas = load_atlas(filename)
+        self.mapper.atlas = self.atlas
+        self.tracking.atlas = self.atlas
+        Verbose.log(f"Atlas loaded from {filename}")

@@ -81,9 +81,38 @@ def se3_exp(xi):
     return R, t
 
 
+def se3_log(R, t):
+    """Inverse of se3_exp: (R, t) -> (..., 6) [rho, phi].
+
+    Safe under torch.func.jacfwd at the identity, where the pose graph takes
+    its edge Jacobians: theta2 ~ 0 selects the series branch, and the other
+    branch divides by 1 - cos + EPS, so its tangent stays finite too. As in
+    the reference, the closed form starts at theta2 > 1e-8, where f32 cannot
+    resolve 1 - cos: up to ~0.3 rad its rho is ill-conditioned (ROADMAP
+    Queue 3)."""
+    phi = so3_log(R)
+    theta2 = (phi * phi).sum(-1, keepdim=True)[..., None]
+    theta = torch.sqrt(theta2 + _EPS)
+    K = hat(phi)
+    # V^-1 = I - K/2 + (1/theta^2)(1 - theta sin / (2 (1 - cos))) K^2
+    coef = torch.where(
+        theta2 > 1e-8,
+        (1.0 - (theta * torch.sin(theta)) / (2.0 * (1.0 - torch.cos(theta) + _EPS))) / (theta2 + _EPS),
+        1.0 / 12.0 + theta2 / 720.0,
+    )
+    Vinv = _eye3(phi) - 0.5 * K + coef * (K @ K)
+    rho = (Vinv @ t[..., None])[..., 0]
+    return torch.cat([rho, phi], dim=-1)
+
+
 def se3_compose(Ra, ta, Rb, tb):
     """(a o b): x -> Ra (Rb x + tb) + ta."""
     return Ra @ Rb, (Ra @ tb[..., None])[..., 0] + ta
+
+
+def se3_inverse(R, t):
+    Rt = R.transpose(-1, -2)
+    return Rt, -(Rt @ t[..., None])[..., 0]
 
 
 def project_to_so3(M):

@@ -460,3 +460,83 @@ def stereo_metric_errors(system, stream):
         R_gt, t_gt = stream.gt_pose(k + 1)
         errs.append(np.linalg.norm(R_gt.T @ t_gt - Rg.T @ tg))
     return k0, np.array(errs)
+
+
+class _FakeFrame:
+    """What KeyFrame(frame) reads (tests/test_inertial.py::_FakeFrame)."""
+
+    def __init__(self, fid, ts, R, t, track_ids, pts):
+        self.id, self.timestamp, self.R, self.t = fid, ts, R, t
+        self.track_ids, self.pts = track_ids, pts
+        self.desc = self.ages = self.image = self.depth_right = self.uright = None
+        self.mappoints = [None] * len(track_ids)
+
+
+def gba_map(mapmod, cammod, n_kf=120, n_mp=600, noise=5e-3, seed=0, per_kf=40, bf=0.0):
+    """tests/test_global_ba.py::_build_map over either package's map and camera
+    modules: a circular trajectory observing a point cloud, each keyframe the first
+    `per_kf` visible points, with poses (but the first) and points perturbed
+    so that BA has something to correct. bf > 0 adds each observation's
+    right-image column u - bf / z (a rectified stereo rig)."""
+    rng = np.random.default_rng(seed)
+    cam = cammod.Pinhole(300.0, 300.0, 160.0, 120.0, 320, 240)
+    m = mapmod.Map()
+    X_true = rng.uniform(-4, 4, (n_mp, 3))
+    X_true[:, 2] += 12.0
+    kfs, sels = [], []
+    for k in range(n_kf):
+        s = k / n_kf
+        c = np.array([3 * np.sin(2 * np.pi * s), 3 * np.cos(2 * np.pi * s), -1.0 + 2 * s])
+        R = np.eye(3)
+        t_cw = -R @ c
+        pc = X_true @ R.T + t_cw
+        u = cam.fx * pc[:, 0] / pc[:, 2] + cam.cx
+        v = cam.fy * pc[:, 1] / pc[:, 2] + cam.cy
+        vis = (pc[:, 2] > 1) & (u >= 0) & (u < 320) & (v >= 0) & (v < 240)
+        sel = np.flatnonzero(vis)[:per_kf]
+        kf = mapmod.KeyFrame(_FakeFrame(k, k / 10.0, R, t_cw, sel.astype(np.int64),
+                                        np.stack([u[sel], v[sel]], axis=1)), m.id)
+        if bf > 0:
+            kf.uright = u[sel] - bf / pc[sel, 2]
+        m.add_keyframe(kf)
+        kfs.append(kf)
+        sels.append(sel)
+    mps = [mapmod.MapPoint(X_true[j] + rng.normal(0, noise, 3), kfs[0].id, j, m.id) for j in range(n_mp)]
+    for mp in mps:
+        m.add_mappoint(mp)
+    for kf, sel in zip(kfs, sels):
+        for slot, j in enumerate(sel):
+            mps[int(j)].add_observation(kf, slot)
+            kf.mp_ids[slot] = mps[int(j)].id
+    for kf in kfs[1:]:
+        kf.set_pose(kf.R, kf.t + rng.normal(0, noise * 4, 3))
+    return m, cam, kfs
+
+
+def ring_graph(rng, K=12):
+    """tests/test_posegraph_imu.py::test_pose_graph_closes_loop's graph: K
+    poses on a rising ring, odometry edges plus one loop edge measured
+    exactly, the poses initialized with accumulated drift. Returns
+    (pose_graph_solve's arguments as numpy, R_gt, t_gt)."""
+    from movslam_tpu_torch.ops.lie import so3_exp
+    from movslam_tpu_torch.ops.posegraph import relative_pose
+
+    def rot(w):
+        return so3_exp(torch.as_tensor(np.asarray(w, np.float32))).numpy()
+
+    R_gt = np.stack([rot([0, 2 * np.pi * k / K, 0]) for k in range(K)]).astype(np.float32)
+    t_gt = np.stack([[np.cos(2 * np.pi * k / K), 0.1 * k, np.sin(2 * np.pi * k / K)]
+                     for k in range(K)]).astype(np.float32)
+    ei, ej, eR, et = [], [], [], []
+    for i, j in [(k + 1, k) for k in range(K - 1)] + [(0, K - 1)]:
+        Rm, tm = relative_pose(R_gt[i], t_gt[i], R_gt[j], t_gt[j])
+        ei.append(i), ej.append(j), eR.append(Rm), et.append(tm)
+    R0, t0 = R_gt.copy(), t_gt.copy()
+    for k in range(1, K):
+        R0[k] = rot(rng.normal(0, 0.02, 3) * k / K) @ R_gt[k]
+        t0[k] = t_gt[k] + rng.normal(0, 0.05, 3) * k / K
+    fixed = np.zeros(K, bool)
+    fixed[0] = True
+    args = (R0, t0, fixed, np.ones(K, bool), np.array(ei, np.int32), np.array(ej, np.int32),
+            np.stack(eR).astype(np.float32), np.stack(et).astype(np.float32), np.ones(len(ei), np.float32))
+    return args, R_gt, t_gt

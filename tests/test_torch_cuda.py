@@ -12,7 +12,9 @@ import pytest
 import torch
 
 from movslam_tpu_torch.ops import kernels
-from tests._torch_parity import candidate_case, stereo_settings, stereo_window_case, stereo_words, window_case
+from tests._torch_parity import (
+    candidate_case, gba_map, ring_graph, stereo_settings, stereo_window_case, stereo_words, window_case,
+)
 
 pytestmark = pytest.mark.cuda
 
@@ -369,3 +371,47 @@ def test_vi_system_defaults_to_the_card(card):
     assert sorted(system.imu_buffer.by_frame) == list(range(1, 30))
     assert (kernels.score_candidates.launches - before
             == system.counts["window_frames"] + system.counts["per_frame_p"])
+
+
+def test_pose_graph_on_the_card_agrees_with_the_cpu(card):
+    """ops/posegraph.pose_graph_solve on tests/test_posegraph_imu.py's ring
+    (12 nodes, 20 LM iterations) on the card and on the CPU. The card's
+    index_add_ sums in another order, so the poses are held within 1e-4, not
+    bit for bit; both close the loop (final cost < 1e-3). Printed (-s)."""
+    from movslam_tpu_torch.ops import posegraph
+
+    args, R_gt, t_gt = ring_graph(np.random.default_rng(12345))
+    out = {}
+    for dev in ("cpu", card):
+        res = posegraph.pose_graph_solve(*[torch.as_tensor(a, device=dev) for a in args])
+        out[str(dev)] = [x.cpu().numpy() for x in res]
+    (Rc, tc, cc), (Rg, tg, cg) = out["cpu"], out[str(card)]
+    print(f"pose graph: max |card - cpu| R {np.abs(Rg - Rc).max():.3e} t {np.abs(tg - tc).max():.3e}, "
+          f"final cost card {cg[-1]:.3e} cpu {cc[-1]:.3e}")
+    assert cg[-1] < 1e-3 and cc[-1] < 1e-3
+    np.testing.assert_allclose(Rg, Rc, rtol=0, atol=1e-4)
+    np.testing.assert_allclose(tg, tc, rtol=0, atol=1e-4)
+    assert np.abs(tg - t_gt).max() < 2e-2
+
+
+def test_global_ba_on_the_card_agrees_with_the_cpu(card):
+    """core/local_mapping.global_bundle_adjustment of one 40-keyframe map with
+    a stereo row (bf = 80; the K = 48 bucket) on the card and on the CPU:
+    keyframe poses and points within 1e-4 and the same observations pruned.
+    The stereo row fixes the scale: a monocular map's free scale gauge makes
+    f32 solves part (tests/test_torch_global_ba.py). Printed (-s)."""
+    from movslam_tpu_torch.core import camera, local_mapping, map as pmap
+
+    out = {}
+    for dev in ("cpu", card):
+        m, cam, kfs = gba_map(pmap, camera, n_kf=40, n_mp=300, seed=3, bf=80.0)
+        local_mapping.global_bundle_adjustment(m, cam, device=dev, bf=80.0, iters=10)
+        pts = [m.mappoints[k] for k in sorted(m.mappoints)]
+        out[str(dev)] = (np.stack([kf.R for kf in kfs]), np.stack([kf.t for kf in kfs]),
+                         np.stack([mp.pos for mp in pts]), [len(mp.obs) for mp in pts])
+    (Rc, tc, Xc, oc), (Rg, tg, Xg, og) = out["cpu"], out[str(card)]
+    print(f"global BA: max |card - cpu| R {np.abs(Rg - Rc).max():.3e} t {np.abs(tg - tc).max():.3e} "
+          f"points {np.abs(Xg - Xc).max():.3e}")
+    assert og == oc
+    for name, g, c in (("R", Rg, Rc), ("t", tg, tc), ("points", Xg, Xc)):
+        np.testing.assert_allclose(g, c, rtol=0, atol=1e-4, err_msg=name)

@@ -4,9 +4,10 @@
 (b) the port against the JAX drive on the same stream, at trajectory level
     (their RANSAC generators differ, so frame-level poses are not compared);
 (d) the port's synthetic stream renders the reference's frames;
-(e) the port imports and runs, per frame, one window and three stereo pairs, with jax, flax,
-    yaml, cv2 and the JAX package blocked — the machine with the card has none of the first four,
-    and the port keeps its own copies of what it needs from the fifth;
+(e) the port imports and runs, per frame, one window, global BA, an atlas checkpoint and three
+    stereo pairs, with jax, flax, yaml, cv2 and the JAX package blocked — the machine with the
+    card has none of the first four, and the port keeps its own copies of what it needs from
+    the fifth;
 plus the explicit-device rule. ((c), TrackState.from_numpy on a JAX state,
 is in tests/test_torch_extractor.py.)"""
 import os
@@ -142,8 +143,15 @@ def test_runs_with_jax_flax_yaml_cv2_blocked(tmp_path):
             system.track_monocular(smv.timestamp, smv)
         items = [(f.timestamp, f) for f in (stream.frame(k) for k in range(5, 9))]
         poses = system.track_monocular_batch(items)  # one window or more
+        system.global_bundle_adjustment(iters=2)
         system.shutdown()
         assert system.tracking.state.name == "OK", system.tracking.state
+        from movslam_tpu_torch.core import checkpoint, map_merge
+        from movslam_tpu_torch.ops import posegraph
+        system.save_atlas("a.atlas")
+        system.load_atlas("a.atlas")
+        assert system.atlas.current.n_keyframes() >= 2
+        assert not map_merge.try_merge(system.atlas, device="cpu")  # one map: nothing to weld
         assert system.counts["windows"] >= 1 and len(poses) == 4, system.counts
         assert system.image_count == 9 and system.get_total_lost() == 0
         from movslam_tpu_torch.config.settings import STEREO
