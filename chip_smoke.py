@@ -8,8 +8,11 @@ Phases (any failure exits nonzero and prints no result line):
   2. kernels : each kernel on the card against its plain PyTorch version,
                bit-exact: score_blocks at B = 8192 blocks of a 480x640 image
                and on border coordinates; score_candidates at N = 2048
-               tracks x M = 4096 MVs (the main path's shapes) and on a
-               small case full of border tracks, ties and exact-256 rows.
+               tracks x M = 4096 MVs (the main path's shapes), on a
+               small case full of border tracks, ties and exact-256 rows, at
+               M = 8192 (the CLI decoder's capacity) and over S = 8 streams
+               x N = 2048 x M = 8192 in one launch (also equal to 8
+               single-stream launches).
                Per kernel: device time per launch (CUDA events around a
                CUDA graph of 200 launches), the profiler's kernel time,
                wrapper time per call (events around one Python call), the
@@ -89,6 +92,34 @@ Phases (any failure exits nonzero and prints no result line):
                observations per keyframe, 20 iterations: the map at those
                caps, every non-anchor keyframe moved, finite, the
                reprojection error fell; ms, peak device memory, launches.
+  9. ingest  : whether pkg-config finds libav (libavformat, libavcodec,
+               libavutil, libswscale). Where it does: build the port's
+               native decoder, encode 320 frames of SyntheticStream(
+               n_points=400, seed=42) at 640x480 with libx264 (CAVLC, ref 4,
+               keyint 1000; tests/test_codec_e2e.py's stream), decode them
+               with io/video.VideoDecoder, and drive the file through
+               cli.mono_drive on the card (windowed, batches of 8), two
+               batch calls under torch.profiler. Gates: every frame counted,
+               0 lost, >= 10 keyframes, scale-aligned ATE < 5% of the span,
+               score_candidates once per dispatched P-frame. Where it does
+               not, one line says so and the phase goes on. Either way:
+               synthetic://n_frames=48 through cli.mono_drive and cli._finish
+               in a temporary directory (results.txt: 48 frames, 0 lost;
+               both trajectory files).
+ 10. parallel: a one-rank NCCL group (HashStore). (a) parallel/multistream
+               over 8 streams x 2048 tracks at 640x480: one
+               score_candidates launch, results equal to 8 single-stream
+               calls, ms per batch; (b) parallel/sharded_ba against
+               ops/ba.ba_solve on phase 3's map's global-BA problem, 40 LM
+               iterations each (rotations, and translations with mono BA's
+               free scale removed, within 5e-3; points seen from two
+               keyframes or more within 5e-2 without the scale; the best
+               cost <= 1.1x ba_solve's + 1e-3, tests/test_parallel.py's
+               criterion); (c) System.global_bundle_adjustment(iters=40,
+               mesh=group) against mesh=None on two copies of phase 3's
+               map (the same keyframes and points, pruning apart on <= 1%
+               of the points; without the scale, poses within 5e-3 and
+               points seen twice or more within 5e-2).
 Before the last line it prints the card's name and power limit and one JSON
 line describing each kernel; the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -117,6 +148,17 @@ STEREO_B, STEREO_BF = 0.25, 80.0
 VI_PER_FRAME, VI_WINDOWED, VI_PROFILED, VI_MIN_KFS = 60, 96, 8, 8  # phase 7, in frames
 MERGE_SIM3 = (1.7, [0.05, -0.3, 0.1], [2.0, -1.0, 0.5])  # phase 8 (b): s, rotation vector, t
 GBA_TOP_KF, GBA_TOP_MP, GBA_TOP_PER_KF = 512, 16384, 128  # phase 8 (d): the reference's global-BA caps
+CLI_MVS = 8192  # phase 2: the CLI decoder's MV capacity (VideoDecoder(max_mvs=8192))
+S_STREAMS = 8  # phase 2: streams of score_candidates in one launch
+H264_FRAMES = 320  # phase 9: tests/test_codec_e2e.py's real-H.264 stream
+H264_PROFILED = range(20, 22)  # phase 9: batch calls of the drive under the profiler
+MS_STREAMS, MS_TRACKS = 8, 2048  # phase 10: multistream batch
+# Phase 10 (b)-(c): LM iterations of the solves compared. Two solves of one
+# mono map in two summation orders (the card's atomic scatters, or another
+# rank count) take different accept steps; by 40 iterations they reach one
+# solution, apart from points seen from a single keyframe, whose depth
+# nothing holds (PERF.md, Findings). 20 left points 5.5e-2 apart on an H100.
+PAR_ITERS = 40
 PROF_STAGES = ("disp_pack_host", "disp_upload", "disp_commit_snap", "disp_jit_call", "disp_tail",
                "rep_wire_pull", "rep_pre", "rep_track_fused")
 GRAPH_LAUNCHES = 200
@@ -138,23 +180,6 @@ BANNED = ("jax", "flax", "movslam_tpu")
 def fail(msg):
     print(f"FAIL: {msg}", flush=True)
     sys.exit(1)
-
-
-def umeyama_ate(gt_centers, est_centers):
-    """Scale-aligned ATE RMSE (Horn/Umeyama with scale)."""
-    import numpy as np
-
-    gt, est = np.asarray(gt_centers).T, np.asarray(est_centers).T
-    mu_g, mu_e = gt.mean(1, keepdims=True), est.mean(1, keepdims=True)
-    gc, ec = gt - mu_g, est - mu_e
-    U, d, Vt = np.linalg.svd(gc @ ec.T / gt.shape[1])
-    S = np.eye(3)
-    if np.linalg.det(U) * np.linalg.det(Vt) < 0:
-        S[2, 2] = -1
-    R = U @ S @ Vt
-    s = (d * S.diagonal()).sum() / ((ec * ec).sum() / ec.shape[1])
-    err = np.linalg.norm(s * R @ est + (mu_g - s * R @ mu_e) - gt, axis=0)
-    return float(np.sqrt((err ** 2).mean()))
 
 
 def call_ms(fn, reps=50, warmup=5):
@@ -343,6 +368,8 @@ def windowed_phase(System, settings, monocular, SyntheticStream, kernels, card):
     import torch
     from torch.profiler import profile
 
+    from movslam_tpu_torch.multistream_eval import scale_aligned_ate
+
     n_tracked = W_WARM + W_TIMED + W_PROFILED  # frames tracked with mapping on
     n_fed = n_tracked + W_LOC
     stream = SyntheticStream(n_points=400, seed=42)
@@ -402,11 +429,11 @@ def windowed_phase(System, settings, monocular, SyntheticStream, kernels, card):
     # localization frames were added; theirs is printed beside it.
     est = {k: -(p[0].T @ p[1]) for k, p in enumerate(poses) if p is not None}
     mapped = {k: c for k, c in est.items() if k < n_tracked}
-    ate_live = umeyama_ate([gt(k) for k in mapped], list(mapped.values()))
-    ate_live_all = umeyama_ate([gt(k) for k in est], list(est.values()))
+    ate_live = scale_aligned_ate([gt(k) for k in mapped], list(mapped.values()))[0]
+    ate_live_all = scale_aligned_ate([gt(k) for k in est], list(est.values()))[0]
     traj = [row for row in system.frame_trajectory() if round(row[0] * 30.0) < n_tracked]
-    ate_post = umeyama_ate([gt(round(ts * 30.0)) for ts, _, _, _ in traj],
-                           [-(R.T @ t) for _, R, t, _ in traj])
+    ate_post = scale_aligned_ate([gt(round(ts * 30.0)) for ts, _, _, _ in traj],
+                                 [-(R.T @ t) for _, R, t, _ in traj])[0]
     c = system.counts
     by_len = {int(k.rsplit("_", 1)[1]): v for k, v in sorted(timed.items()) if k.startswith("windows_len_") and v}
     dispatched = c["window_frames"] + c["per_frame_p"]
@@ -979,6 +1006,7 @@ def atlas_phase(System, settings, monocular, system, stream, card):
     from torch.profiler import profile
 
     from movslam_tpu_torch.core import checkpoint, local_mapping, map_merge
+    from movslam_tpu_torch.multistream_eval import scale_aligned_ate
 
     def synced(fn):
         torch.cuda.synchronize()
@@ -996,7 +1024,8 @@ def atlas_phase(System, settings, monocular, system, stream, card):
     def posthoc_ate(sys_):
         traj = sys_.frame_trajectory()
         gt = lambda k: -(stream.gt_pose(k)[0].T @ stream.gt_pose(k)[1])  # noqa: E731
-        return umeyama_ate([gt(round(ts * 30.0)) for ts, _, _, _ in traj], [-(R.T @ t) for _, R, t, _ in traj])
+        return scale_aligned_ate([gt(round(ts * 30.0)) for ts, _, _, _ in traj],
+                                 [-(R.T @ t) for _, R, t, _ in traj])[0]
 
     out, checks = {}, {}
     m = system.atlas.current
@@ -1115,6 +1144,290 @@ def atlas_phase(System, settings, monocular, system, stream, card):
     return out
 
 
+def ingest_phase(System, settings, monocular, SyntheticStream, kernels, card):
+    """Phase 9 (see the module docstring). Returns the numbers it printed."""
+    import tempfile
+
+    import numpy as np
+    import torch
+    from torch.profiler import profile
+
+    from movslam_tpu_torch import cli
+    from movslam_tpu_torch.io import video
+    from movslam_tpu_torch.io.mvimage import FrameType
+    from movslam_tpu_torch.multistream_eval import scale_aligned_ate
+
+    out, checks = {}, {}
+    found = video.libav_found()
+    out["libav_found"] = found
+    out["launches"] = None  # the real-H.264 drive's, where it ran
+    print(f"ingest: pkg-config finds {', '.join(video.LIBAV)}: {'yes' if found else 'no'}", flush=True)
+    cwd = os.getcwd()
+    with tempfile.TemporaryDirectory() as tmp:
+        if not found:
+            print("ingest: libav's development files are absent on this host: the real-H.264 drive is "
+                  "verified on the CPU host only (tests/test_torch_video.py, test_torch_cli.py, "
+                  "test_torch_codec_e2e.py)", flush=True)
+        else:
+            t0 = time.perf_counter()
+            video.build(verbose=True)
+            out["decoder_build_s"] = time.perf_counter() - t0
+            stream = SyntheticStream(n_points=400, seed=42)
+            frames = np.stack([stream.render(k)[0] for k in range(H264_FRAMES)])  # rendering is set-up
+            path = os.path.join(tmp, "codec.mp4")
+            t0 = time.perf_counter()
+            video.encode_gray(path, frames, fps=30.0, keyint=1000, refs=4, cavlc=True)
+            out["encode_s"] = time.perf_counter() - t0
+            dec = video.VideoDecoder(path)
+            dec.init()
+            t0 = time.perf_counter()
+            decoded = list(dec)
+            out["decode_ms_per_frame"] = 1e3 * (time.perf_counter() - t0) / max(len(decoded), 1)
+            dec.close()
+            out["max_mvs"] = max(f.n_mvs for f in decoded)
+            n_p = sum(f.ft == FrameType.P_FRAME for f in decoded)
+
+            # The CLI's throughput drive on the card; two batch calls in the
+            # middle under the profiler, for the device's idle share.
+            system = System(settings, monocular, device="cuda")
+            plain_batch, calls, prof = system.track_monocular_batch, [0], {}
+
+            def batch(items, flush=True):
+                k = calls[0]
+                calls[0] += 1
+                if k == H264_PROFILED[0]:
+                    torch.cuda.synchronize()
+                    prof["p"] = profile(activities=drive_activities())
+                    prof["p"].__enter__()
+                    prof["t0"], prof["frames"] = time.perf_counter(), 0
+                res = plain_batch(items, flush=flush)
+                if k in H264_PROFILED:
+                    prof["frames"] += len(items)
+                if k == H264_PROFILED[-1]:
+                    torch.cuda.synchronize()
+                    prof["wall_ms"] = 1e3 * (time.perf_counter() - prof["t0"])
+                    prof["p"].__exit__(None, None, None)
+                return res
+
+            system.track_monocular_batch = batch
+            kernels.score_candidates.launches = kernels.score_blocks.launches = 0
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            n, _ = cli.mono_drive(system, path)
+            torch.cuda.synchronize()
+            drive_ms = 1e3 * (time.perf_counter() - t0) / max(n, 1)
+            launches = {"score_candidates": kernels.score_candidates.launches,
+                        "score_blocks": kernels.score_blocks.launches}
+            _, _, busy = launch_counts(prof["p"], 1)
+            system.shutdown()
+            torch.cuda.synchronize()
+            c, m = system.counts, system.atlas.current
+            dispatched = c["window_frames"] + c["per_frame_p"]
+            traj = system.frame_trajectory()
+            gt = np.array([-(stream.gt_pose(round(ts * 30.0))[0].T @ stream.gt_pose(round(ts * 30.0))[1])
+                           for ts, _, _, _ in traj])
+            ate = scale_aligned_ate(gt, [-(R.T @ t) for _, R, t, _ in traj])[0]
+            span = float(np.linalg.norm(np.ptp(gt, axis=0)))
+            out.update({
+                "frames": n, "p_frames": int(n_p), "drive_ms_per_frame": drive_ms, "lost": system.get_total_lost(),
+                "keyframes": m.n_keyframes(), "ate_m": ate, "span_m": span, "ate_pct_of_span": 100 * ate / span,
+                "launches": launches, "p_frames_dispatched": dispatched,
+                "profiled": {"frames": prof["frames"], "busy_ms": busy, "wall_ms": prof["wall_ms"],
+                             "idle": 1 - busy / prof["wall_ms"]},
+            })
+            print(f"ingest: decoder built in {out['decoder_build_s']:.1f} s; {H264_FRAMES} frames of "
+                  f"SyntheticStream(seed=42) encoded (CAVLC, ref 4, keyint 1000) in {out['encode_s']:.1f} s; "
+                  f"decode {out['decode_ms_per_frame']:.3f} ms/frame on the host, up to {out['max_mvs']} MVs",
+                  flush=True)
+            print(f"ingest: real-H.264 drive (cli.mono_drive, windowed, batches of {system.window}) "
+                  f"{drive_ms:.2f} ms/frame incl. decoding, {n} frames, lost {system.get_total_lost()}, "
+                  f"{m.n_keyframes()} keyframes, ATE {ate:.4f} m = {100 * ate / span:.2f}% of {span:.3f} m; "
+                  f"score_candidates launches {launches['score_candidates']} for {dispatched} P-frames "
+                  f"dispatched; device busy {busy:.2f} ms of {prof['wall_ms']:.2f} ms over {prof['frames']} "
+                  f"profiled frames (idle {1 - busy / prof['wall_ms']:.3f}) on {card}", flush=True)
+            checks.update({
+                "real H.264: every frame counted": n == H264_FRAMES == system.image_count,
+                "real H.264: 0 lost": system.get_total_lost() == 0,
+                "real H.264: >= 10 keyframes": m.n_keyframes() >= 10,
+                "real H.264: ATE < 5% of span": 100 * ate / span < 5.0,
+                "real H.264: score_candidates once per dispatched P-frame":
+                    launches["score_candidates"] == dispatched > 0,
+            })
+
+        # synthetic://n_frames=48 through the same drive function and _finish
+        os.chdir(tmp)
+        try:
+            system = System(settings, monocular, device="cuda")
+            kernels.score_candidates.launches = kernels.score_blocks.launches = 0
+            n, wall = cli.mono_drive(system, "synthetic://n_frames=48")
+            cli._finish(system, n, wall)
+            cli_launches = {"score_candidates": kernels.score_candidates.launches,
+                            "score_blocks": kernels.score_blocks.launches}
+            fields = open("results.txt").read().strip().split(",")
+            kitti = np.loadtxt("TrajectoryKITTIKeyFrame.txt", ndmin=2)
+            euroc = np.loadtxt("TrajectoryEUROC.txt", ndmin=2)
+        finally:
+            os.chdir(cwd)
+    out["cli_synthetic"] = {"results": fields, "kitti_rows": len(kitti), "euroc_rows": len(euroc),
+                            "ms_per_frame": 1e3 * wall / max(n, 1), "launches": cli_launches}
+    print(f"ingest: cli synthetic://n_frames=48: results.txt {','.join(fields)}, {len(kitti)} keyframe rows, "
+          f"{len(euroc)} frame rows, {1e3 * wall / max(n, 1):.2f} ms/frame, score_candidates launches "
+          f"{cli_launches['score_candidates']} on {card}", flush=True)
+    checks["cli synthetic: results.txt 48 frames, 0 lost"] = (len(fields) == 3 and int(fields[0]) == 48
+                                                              and int(fields[1]) == 0)
+    checks["cli synthetic: score_candidates launched"] = cli_launches["score_candidates"] > 0
+    checks["cli synthetic: trajectory files"] = kitti.shape[1] == 13 and euroc.shape[1] == 8 and len(euroc) >= 40
+    bad = [name for name, ok in checks.items() if not ok]
+    if bad:
+        fail(f"ingest gates failed: {bad}")
+    return out
+
+
+def parallel_phase(System, settings, monocular, SyntheticStream, kernels, card, system):
+    """Phase 10 (see the module docstring). `system` is phase 3's. Returns
+    the numbers it printed."""
+    import tempfile
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from movslam_tpu_torch.core import local_mapping
+    from movslam_tpu_torch.multistream_eval import frontend_inputs
+    from movslam_tpu_torch.ops.ba import ba_solve
+    from movslam_tpu_torch.ops.propagate import propagate_mv_tracks
+    from movslam_tpu_torch.parallel import gba
+    from movslam_tpu_torch.parallel.multistream import make_multistream_propagate
+    from movslam_tpu_torch.parallel.sharded_ba import make_sharded_ba
+
+    out, checks = {}, {}
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0, world_size=1)
+    try:
+        group = dist.group.WORLD
+        # (a) S streams' MV propagation in one call against S single calls
+        streams = [SyntheticStream(n_points=400, seed=100 + s) for s in range(MS_STREAMS)]
+        args = [torch.as_tensor(a, device="cuda") for a in frontend_inputs(streams, cap=MS_TRACKS)]
+        prop = make_multistream_propagate("cuda", group=group)
+        kernels.score_candidates.launches = kernels.score_blocks.launches = 0
+        got = prop(*args, THR)
+        torch.cuda.synchronize()
+        launches = {"score_candidates": kernels.score_candidates.launches,
+                    "score_blocks": kernels.score_blocks.launches}
+
+        def singles():
+            return [propagate_mv_tracks(*[a[s] for a in args], n_kps_capacity=args[9].shape[1], threshold=THR)
+                    for s in range(MS_STREAMS)]
+
+        one = singles()
+        same = all(torch.equal(got[k], torch.stack([o[k] for o in one])) for k in got)
+        batch_ms, singles_ms = call_ms(lambda: prop(*args, THR), reps=20), call_ms(singles, reps=5)
+        out["multistream"] = {"streams": MS_STREAMS, "tracks": MS_TRACKS, "mvs": int(args[7].shape[1]),
+                              "ms_per_batch": batch_ms, "ms_8_single_calls": singles_ms, "launches": launches,
+                              "accepted": int(got["accepted"].sum())}
+        print(f"parallel: multistream propagate, {MS_STREAMS} streams x {MS_TRACKS} tracks x "
+              f"{args[7].shape[1]} MVs: {batch_ms:.2f} ms per batch ({launches['score_candidates']} score_candidates "
+              f"launch) "
+              f"against {singles_ms:.2f} ms for {MS_STREAMS} single-stream calls; equal: {same} on {card}",
+              flush=True)
+        checks["multistream: equal to single-stream calls"] = same
+        checks["multistream: one score_candidates launch per batch"] = launches["score_candidates"] == 1
+
+        # (b) the sharded BA against ba_solve, on phase 3's map's problem;
+        # mono BA leaves the scale free, so poses and points are compared
+        # without it, and the cost as tests/test_parallel.py compares it.
+        m, cam = system.atlas.current, system.mapper.camera
+        (w_kfs, n_anchor), = local_mapping.gba_windows(m)
+        ordered, prob = local_mapping.gba_problem(m, w_kfs, n_anchor)
+        sh = gba._shard_problem(prob, 1, prob["obp"].shape[1])
+        T = lambda x: torch.as_tensor(np.ascontiguousarray(x), device="cuda")  # noqa: E731
+        kf, mp, ob = prob["kf_pack"], prob["mp_pack"], prob["obs_pack"]
+        R, t, X, costs = make_sharded_ba(group, iters=PAR_ITERS)(
+            T(kf[:, 0:9].reshape(-1, 3, 3)), T(kf[:, 9:12]), T(kf[:, 12] > 0), T(kf[:, 13] > 0),
+            T(sh["mp_pos"]), T(sh["mp_valid"]), T(sh["obs_kf"]), T(sh["obs_mp"]), T(sh["obs_uv"]),
+            T(sh["obs_valid"]), T(sh["obp"]), cam.fx, cam.fy, cam.cx, cam.cy)
+        ref = ba_solve(T(kf[:, 0:9].reshape(-1, 3, 3)), T(kf[:, 9:12]), T(kf[:, 12] > 0), T(kf[:, 13] > 0),
+                       T(mp[:, 0:3]), T(mp[:, 3] > 0), T(ob[:, 0].astype(np.int64)), T(ob[:, 1].astype(np.int64)),
+                       T(ob[:, 2:4]), T(ob[:, 5] > 0), T(prob["obp"].astype(np.int64)),
+                       cam.fx, cam.fy, cam.cx, cam.cy, iters=PAR_ITERS)
+        torch.cuda.synchronize()
+        kv, pv = kf[:, 13] > 0, mp[:, 3] > 0
+        seen2 = np.bincount(ob[ob[:, 5] > 0, 1].astype(np.int64), minlength=len(mp))[pv] >= 2
+        k0 = int(np.flatnonzero(kv & (kf[:, 12] > 0))[0])  # the fixed keyframe
+        Ra, ta, Xa = (x.double().cpu().numpy() for x in (R, t, X))
+        Rb, tb, Xb = (ref[k].double().cpu().numpy() for k in ("kf_R", "kf_t", "mp_pos"))
+        scale, ta_s, Xa_s = gba.remove_scale_gauge(Ra[kv], ta[kv], Xa[pv], Rb[kv], tb[kv], int(kv[:k0].sum()))
+        dR = float(np.abs(Ra - Rb).max())
+        dt = float(np.abs(ta_s - tb[kv]).max())
+        dX, dX_s = float(np.abs(Xa - Xb)[pv].max()), float(np.abs(Xa_s - Xb[pv]).max())
+        dX_s2 = float(np.abs(Xa_s - Xb[pv])[seen2].max())
+        best, ref_cost = float(costs[torch.isfinite(costs)].min()), float(ref["cost"])
+        out["sharded_ba"] = {"K": int(kf.shape[0]), "P": int(mp.shape[0]), "O": int(sh["Od"]),
+                             "scale": scale, "max_R_diff": dR, "max_t_diff_scale_removed": dt,
+                             "iters": PAR_ITERS, "max_point_diff": dX, "max_point_diff_scale_removed": dX_s,
+                             "max_point_diff_scale_removed_seen_twice": dX_s2, "points_seen_twice": int(seen2.sum()),
+                             "trial_cost_first": float(costs[0]), "trial_cost_best": best,
+                             "ba_solve_cost": ref_cost}
+        print(f"parallel: sharded BA (1 NCCL rank) vs ba_solve on phase 3's map (K={kf.shape[0]}, "
+              f"P={mp.shape[0]}), {PAR_ITERS} iterations: scale {scale:.6f}, then max |t| diff {dt:.3e}; R "
+              f"{dR:.3e}; points {dX:.3e} ({dX_s:.3e} without the scale, {dX_s2:.3e} over the {seen2.sum()} "
+              f"seen twice or more); best trial cost {best:.4f} vs {ref_cost:.4f} on {card}", flush=True)
+        checks["sharded BA: R, t within 5e-3, points seen twice within 5e-2 without the scale"] = (
+            dR < 5e-3 and dt < 5e-3 and dX_s2 < 5e-2)
+        checks["sharded BA: cost <= 1.1x ba_solve's + 1e-3"] = best <= 1.1 * ref_cost + 1e-3
+        checks["sharded BA: finite poses and points"] = all(bool(torch.isfinite(x).all()) for x in (R, t, X))
+
+        # (c) System.global_bundle_adjustment(mesh=group) against mesh=None
+        states = {}
+        with tempfile.TemporaryDirectory() as tmp:
+            path = os.path.join(tmp, "phase3.atlas")
+            system.save_atlas(path)
+            for label, mesh in (("mesh", group), ("one device", None)):
+                sys_ = System(settings, monocular, device="cuda")
+                sys_.load_atlas(path)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                sys_.global_bundle_adjustment(iters=PAR_ITERS, mesh=mesh)
+                torch.cuda.synchronize()
+                mm = sys_.atlas.current
+                states[label] = ({k: (kf_.R.copy(), kf_.t.copy()) for k, kf_ in mm.keyframes.items()},
+                                 {k: mp.pos.copy() for k, mp in mm.mappoints.items()},
+                                 {k: len(mp.obs) for k, mp in mm.mappoints.items()},
+                                 1e3 * (time.perf_counter() - t0))
+        (ka, pa, oa, ms_a), (kb, pb, ob, ms_b) = states["mesh"], states["one device"]
+        kids, pids = sorted(kb), sorted(pb)
+        pose = lambda st, i: np.array([st[k][i] for k in kids])  # noqa: E731
+        scale, ta_s, Xa_s = gba.remove_scale_gauge(pose(ka, 0), pose(ka, 1), np.array([pa[k] for k in pids]),
+                                         pose(kb, 0), pose(kb, 1), 0)  # the first keyframe is fixed
+        gdt = float(np.abs(ta_s - pose(kb, 1)).max())
+        gdR = float(np.abs(pose(ka, 0) - pose(kb, 0)).max())
+        gd = np.abs(Xa_s - np.array([pb[k] for k in pids])).max(1)
+        twice = np.array([ob[k] >= 2 for k in pids])
+        gdX, gdX2 = float(gd.max()), float(gd[twice].max())
+        # Pruning is judged from host f64 residuals on the mesh path (as in
+        # the reference) and from f32 ones on one device: an observation at
+        # the chi2 threshold may go either way.
+        differ = sum(oa[k] != ob[k] for k in ob)
+        out["gba_mesh"] = {"keyframes": len(kb), "map_points": len(pb), "ms_mesh": ms_a, "ms_one_device": ms_b,
+                           "scale": scale, "max_t_diff_scale_removed": gdt, "max_R_diff": gdR,
+                           "iters": PAR_ITERS, "max_point_diff_scale_removed": gdX,
+                           "max_point_diff_scale_removed_seen_twice": gdX2, "points_seen_twice": int(twice.sum()),
+                           "points_pruned_differently": differ}
+        print(f"parallel: System.global_bundle_adjustment(iters={PAR_ITERS}, mesh=group) {ms_a:.2f} ms vs "
+              f"mesh=None {ms_b:.2f} ms on phase 3's map ({len(kb)} keyframes, {len(pb)} points): scale "
+              f"{scale:.6f}, then max |t| diff {gdt:.3e}, points {gdX:.3e} ({gdX2:.3e} over the {twice.sum()} "
+              f"seen twice or more); R {gdR:.3e}; {differ} points pruned differently on {card}", flush=True)
+        checks["gba mesh: same keyframes and points"] = set(ka) == set(kb) and set(pa) == set(pb)
+        checks["gba mesh: pruning differs on <= 1% of points"] = differ <= 0.01 * len(ob)
+        checks["gba mesh: R, t within 5e-3, points seen twice within 5e-2 without the scale"] = (
+            gdt < 5e-3 and gdR < 5e-3 and gdX2 < 5e-2)
+    finally:
+        dist.destroy_process_group()
+    bad = [name for name, ok in checks.items() if not ok]
+    if bad:
+        fail(f"parallel gates failed: {bad}")
+    return out
+
+
 def main():
     try:
         import numpy as np
@@ -1133,6 +1446,7 @@ def main():
         from movslam_tpu_torch.io.synthetic import SyntheticStream
         from movslam_tpu_torch.io.synthetic_stereo import SyntheticStereoStream
         from movslam_tpu_torch.io.synthetic_vi import SyntheticVIStream
+        from movslam_tpu_torch.multistream_eval import scale_aligned_ate
         from movslam_tpu_torch.ops import kernels, propagate
     except ImportError as e:
         fail(f"the port (movslam_tpu_torch) does not import from {HERE}: {e}")
@@ -1202,34 +1516,65 @@ def main():
     print(f"kernels: score_candidates bit-exact with score_candidates_ref at N={N} M={M} "
           f"({H}x{W}) and on border, tie and exact-256 cases", flush=True)
 
+    # The stream axis (S streams of N tracks in one launch) and the CLI
+    # decoder's M = 8192 MVs.
+    streams = [candidate_case(kernels, rng, dev, H, W, N, CLI_MVS) for _ in range(S_STREAMS)]
+    s8_args = [torch.stack([c[0] for c in streams])] + [
+        torch.cat([c[i] for c in streams]).contiguous() for i in range(1, 6)]
+    s8_args[2] = torch.cat([torch.where(c[2] >= 0, c[2] + k * CLI_MVS, c[2])
+                            for k, c in enumerate(streams)]).contiguous()
+    extra = {"S8_N2048_M8192": s8_args, "N2048_M8192": streams[0]}
+    for label, args in extra.items():
+        got = kernels.score_candidates(*args, THR)
+        want = kernels.score_candidates_ref(*args, THR)
+        torch.cuda.synchronize()
+        err = max_err(got, want)
+        cand_err = max(cand_err, err)
+        if err:
+            fail(f"score_candidates differs from score_candidates_ref at {label}: {err}")
+    singles = [kernels.score_candidates(*c, THR) for c in streams]
+    got = kernels.score_candidates(*s8_args, THR)
+    offset = torch.arange(S_STREAMS, device=dev, dtype=torch.int32).repeat_interleave(N) * CLI_MVS
+    mv = torch.cat([x[0] for x in singles])
+    if max_err(got, [torch.where(mv >= 0, mv + offset, mv)] + [torch.cat(x) for x in list(zip(*singles))[1:]]):
+        fail("score_candidates over 8 streams differs from 8 single-stream launches")
+    print(f"kernels: score_candidates bit-exact with score_candidates_ref at S={S_STREAMS} streams x N={N} "
+          f"x M={CLI_MVS} ({H}x{W}) and at N={N} M={CLI_MVS}; the 8-stream launch equals 8 single-stream "
+          f"launches", flush=True)
+
     bargs = [torch.as_tensor(a, device=dev) for a in (img, tl, prev)]
     times = {}
-    for name, fn, ref, args, kname in (
-        ("score_blocks", kernels.score_blocks, kernels.score_blocks_ref, bargs, "score_blocks_kernel"),
-        ("score_candidates", kernels.score_candidates, kernels.score_candidates_ref, main_cargs,
-         "score_candidates_kernel"),
-    ):
+    cases = (("score_blocks", "score_blocks", kernels.score_blocks, kernels.score_blocks_ref, bargs,
+              "score_blocks_kernel", B),
+             ("score_candidates", "score_candidates", kernels.score_candidates, kernels.score_candidates_ref,
+              main_cargs, "score_candidates_kernel", 4 * N))
+    cases += tuple((f"score_candidates {label}", "score_candidates", kernels.score_candidates,
+                    kernels.score_candidates_ref, args, None, 4 * args[1].shape[0])
+                   for label, args in extra.items())
+    for key, name, fn, ref, args, kname, blocks in cases:
         t = {
             "plain_ms": call_ms(lambda: ref(*args, THR)),
             "ms": graph_ms(lambda: fn(*args, THR)),
             "wrapper_ms": call_ms(lambda: fn(*args, THR)),
-            "profiler_ms": profiler_ms(lambda: fn(*args, THR), kname),
+            "profiler_ms": profiler_ms(lambda: fn(*args, THR), kname) if kname else None,
         }
-        try:
-            t["plain_device_ms"] = graph_ms(lambda: ref(*args, THR))
-        except RuntimeError as e:  # a plain version that cannot be captured
-            print(f"kernels: {name} plain version not captured in a graph: {e}", flush=True)
+        if kname:
+            try:
+                t["plain_device_ms"] = graph_ms(lambda: ref(*args, THR))
+            except RuntimeError as e:  # a plain version that cannot be captured
+                print(f"kernels: {name} plain version not captured in a graph: {e}", flush=True)
+                t["plain_device_ms"] = None
+        else:
             t["plain_device_ms"] = None
         out = fn(*args, THR)
         nbytes = sum(a.numel() * a.element_size() for a in args) + sum(
             o.numel() * o.element_size() for o in out)
-        blocks = B if name == "score_blocks" else 4 * N
         ops = blocks * (2 * 256 + 3 * 8)  # two compares a pixel; xor, popc, add a word
         t["bound_ms"], t["bound_by"] = bound(nbytes, ops)
         t["bytes"] = nbytes
-        times[name] = t
+        times[key] = t
         us = {k: (v * 1e3 if v is not None else float("nan")) for k, v in t.items() if k.endswith("ms")}
-        print(f"kernels: {name}: device {us['ms']:.3f} us/launch (graph of {GRAPH_LAUNCHES}), "
+        print(f"kernels: {key}: device {us['ms']:.3f} us/launch (graph of {GRAPH_LAUNCHES}), "
               f"profiler {us['profiler_ms']:.3f} us/launch, wrapper {us['wrapper_ms']:.2f} us/call, "
               f"plain {us['plain_ms']:.2f} us/call (device {us['plain_device_ms']:.2f} us), "
               f"bound {us['bound_ms']:.4f} us ({t['bound_by']}, {nbytes} B) on {card}", flush=True)
@@ -1251,10 +1596,10 @@ def main():
 
     m = system.atlas.current
     gt = lambda k: -(stream.gt_pose(k)[0].T @ stream.gt_pose(k)[1])  # noqa: E731
-    ate_live = umeyama_ate([gt(k) for k in est], list(est.values()))
+    ate_live = scale_aligned_ate([gt(k) for k in est], list(est.values()))[0]
     traj = system.frame_trajectory()
-    ate_post = umeyama_ate([gt(round(ts * 30.0)) for ts, _, _, _ in traj],
-                           [-(R.T @ t) for _, R, t, _ in traj])
+    ate_post = scale_aligned_ate([gt(round(ts * 30.0)) for ts, _, _, _ in traj],
+                                 [-(R.T @ t) for _, R, t, _ in traj])[0]
     track_ms = float(np.mean(system.track_ms[10:N_FRAMES]))
     lost = system.get_total_lost()
     print(f"drive: state {system.tracking.state.name}, {m.n_keyframes()} keyframes, "
@@ -1338,6 +1683,14 @@ def main():
     # --- 8. the Atlas back end on phase 3's map -------------------------------------
     atlas = atlas_phase(System, s, MONOCULAR, system, stream, card)
     phase_done("atlas")
+
+    # --- 9. video ingest and the CLI's drive ----------------------------------------
+    ingest = ingest_phase(System, s, MONOCULAR, SyntheticStream, kernels, card)
+    phase_done("ingest")
+
+    # --- 10. parallel/ over a one-rank NCCL group -----------------------------------
+    par = parallel_phase(System, s, MONOCULAR, SyntheticStream, kernels, card, system)
+    phase_done("parallel")
     check_banned()
 
     src = "movslam_tpu_torch/csrc/score_blocks.cu"
@@ -1346,7 +1699,10 @@ def main():
     for name, launched, path in (
         ("score_candidates", launches["score_candidates"],
          "per-frame drive (phase 3); launches_windowed: windowed drive (phase 5); "
-         "launches_stereo_*: the stereo drives (phase 6); launches_vi_*: the VI drives (phase 7)"),
+         "launches_stereo_*: the stereo drives (phase 6); launches_vi_*: the VI drives (phase 7); "
+         "launches_h264: the real-H.264 drive (phase 9; null where libav is absent); launches_cli_synthetic: "
+         "the CLI's drive on synthetic://n_frames=48 (phase 9); launches_multistream: one 8-stream batch "
+         "(phase 10)"),
         ("score_blocks", per_frame["unfused"]["score_blocks"],
          "per-frame drive with unfused scoring (phase 4)"),
     ):
@@ -1357,17 +1713,28 @@ def main():
             "launches_stereo_windowed": ste["windowed"]["launches"][name],
             "launches_stereo_per_frame": ste["per_frame"]["launches"][name],
             "launches_vi_per_frame": vi["per_frame"]["launches"][name],
-            "launches_vi_windowed": vi["windowed"]["launches"][name], "path": path,
+            "launches_vi_windowed": vi["windowed"]["launches"][name],
+            "launches_h264": ingest["launches"][name] if ingest["launches"] is not None else None,
+            "launches_cli_synthetic": ingest["cli_synthetic"]["launches"][name],
+            "launches_multistream": par["multistream"]["launches"][name],
+            "path": path,
             "max_abs_err": cand_err if name == "score_candidates" else blocks_err,
             "ms": t["ms"], "wrapper_ms": t["wrapper_ms"], "profiler_ms": t["profiler_ms"],
             "plain_ms": t["plain_ms"], "plain_device_ms": t["plain_device_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"], "library_ms": None,
         })
+        if name == "score_candidates":
+            rows[-1]["other_shapes"] = {
+                label: {k: times[f"score_candidates {label}"][k]
+                        for k in ("ms", "wrapper_ms", "plain_ms", "bound_ms", "bound_by", "bytes")}
+                for label in ("S8_N2048_M8192", "N2048_M8192")}
     print(json.dumps({"launches_per_frame": per_frame, "card": card}), flush=True)
     print(json.dumps({"windowed_drive": win, "card": card}), flush=True)
     print(json.dumps({"stereo_drive": ste, "card": card}), flush=True)
     print(json.dumps({"vi_drive": vi, "card": card}), flush=True)
     print(json.dumps({"atlas": atlas, "card": card}), flush=True)
+    print(json.dumps({"ingest": ingest, "card": card}), flush=True)
+    print(json.dumps({"parallel": par, "card": card}), flush=True)
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),

@@ -205,20 +205,16 @@ GBA_MAX_MP = 16384
 GBA_MAX_OBS = 65536
 
 
-def global_bundle_adjustment(m, camera, *, device, bf=0.0, iters=20, map_lock=None):
-    """Full-map bundle adjustment (Optimizer::BundleAdjustment /
-    System::GlobalBundleAdjustment, Optimizer.cc:61-395, System.cc:162-169):
-    every good keyframe optimized (the origin fixed), every good map point,
-    `iters` LM iterations on `device`, written back under `map_lock`. The
-    keyframe count is bucketed; a map beyond the largest bucket runs in
-    overlapping windows, each anchored by the keyframes it shares with the
-    one before, so every keyframe is still optimized. bf (baseline * fx)
-    adds the stereo row."""
+def gba_windows(m):
+    """The good keyframes of map m in id order, as (keyframes, number of
+    leading fixed anchors) windows of at most GBA_KF_BUCKETS[-1]: one window
+    when they fit, else overlapping windows, each anchored by the keyframes
+    it shares with the one before."""
     kfs = sorted((kf for kf in m.keyframes.values() if not kf.bad), key=lambda k: k.id)
     if not kfs:
-        return
+        return []
     max_kf = GBA_KF_BUCKETS[-1]
-    windows = [(kfs[:max_kf], 0)]  # (keyframes, number of leading fixed anchors)
+    windows = [(kfs[:max_kf], 0)]
     if len(kfs) > max_kf:
         # At most half a window overlaps, so the step stays positive for
         # small buckets.
@@ -229,14 +225,14 @@ def global_bundle_adjustment(m, camera, *, device, bf=0.0, iters=20, map_lock=No
             windows.append((kfs[i:i + max_kf], overlap))
             i += step
         Verbose.log(f"GlobalBA: {len(kfs)} keyframes -> {len(windows)} overlapping windows of <= {max_kf}")
-    for w_kfs, n_anchor in windows:
-        _gba_window(m, camera, w_kfs, n_anchor, device, bf, iters, map_lock)
+    return windows
 
 
-def _gba_window(m, camera, kfs, n_anchor, device, bf, iters, map_lock):
-    """One global-BA window: kfs[:n_anchor] fixed (the previous window's
-    keyframes; 0 in the first window, where the init keyframe anchors),
-    every other keyframe optimized."""
+def gba_problem(m, kfs, n_anchor):
+    """Assemble one global-BA window: kfs[:n_anchor] fixed (the previous
+    window's keyframes; 0 in the first window, where the init keyframe
+    anchors), every other keyframe optimized, every good point they see.
+    Returns (keyframes in problem order, the problem or None)."""
     K = _bucket(len(kfs), GBA_KF_BUCKETS[0], GBA_KF_BUCKETS[-1])
     kf_ids = {kf.id for kf in kfs}
     mps, seen = [], set()
@@ -254,17 +250,29 @@ def _gba_window(m, camera, kfs, n_anchor, device, bf, iters, map_lock):
     anchor_id = m.init_kf_id if m.init_kf_id in kf_ids else kfs[0].id
     # Fixed anchors go last: assemble_ba_problem fixes kfs[n_opt:].
     ordered = kfs[n_anchor:] + kfs[:n_anchor]
-    prob = assemble_ba_problem(ordered, len(kfs) - n_anchor, mps, anchor_id, K,
-                               p_lo=512, p_hi=GBA_MAX_MP, o_lo=2048, o_hi=GBA_MAX_OBS)
-    if prob is None:
-        return
-    wire, (Kw, Pw, Ow, mopp) = problem_wire(prob)
-    res = ba_solve_wire(torch.as_tensor(wire, device=device),
-                        [camera.fx, camera.fy, camera.cx, camera.cy], bf,
-                        K=Kw, P=Pw, O=Ow, MOPP=mopp, iters=iters)
-    res = split_ba_wire(res.cpu().numpy(), Kw, Pw, Ow)  # waits here, outside the lock
-    with map_lock if map_lock is not None else contextlib.nullcontext():
-        commit_ba_result(res, prob["obs_meta"], ordered, prob["mps"], prob["kf_fixed"], m)
+    return ordered, assemble_ba_problem(ordered, len(kfs) - n_anchor, mps, anchor_id, K,
+                                        p_lo=512, p_hi=GBA_MAX_MP, o_lo=2048, o_hi=GBA_MAX_OBS)
+
+
+def global_bundle_adjustment(m, camera, *, device, bf=0.0, iters=20, map_lock=None):
+    """Full-map bundle adjustment (Optimizer::BundleAdjustment /
+    System::GlobalBundleAdjustment, Optimizer.cc:61-395, System.cc:162-169):
+    every good keyframe optimized (the origin fixed), every good map point,
+    `iters` LM iterations on `device`, written back under `map_lock`. The
+    keyframe count is bucketed; a map beyond the largest bucket runs in
+    overlapping windows (gba_windows), so every keyframe is still
+    optimized. bf (baseline * fx) adds the stereo row."""
+    for w_kfs, n_anchor in gba_windows(m):
+        ordered, prob = gba_problem(m, w_kfs, n_anchor)
+        if prob is None:
+            continue
+        wire, (Kw, Pw, Ow, mopp) = problem_wire(prob)
+        res = ba_solve_wire(torch.as_tensor(wire, device=device),
+                            [camera.fx, camera.fy, camera.cx, camera.cy], bf,
+                            K=Kw, P=Pw, O=Ow, MOPP=mopp, iters=iters)
+        res = split_ba_wire(res.cpu().numpy(), Kw, Pw, Ow)  # waits here, outside the lock
+        with map_lock if map_lock is not None else contextlib.nullcontext():
+            commit_ba_result(res, prob["obs_meta"], ordered, prob["mps"], prob["kf_fixed"], m)
 
 
 class LocalMapping:

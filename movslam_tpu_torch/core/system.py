@@ -852,10 +852,20 @@ class System:
         """Full-map BA over the active map (System::GlobalBundleAdjustment,
         System.cc:162-169): the mapper is drained and its work in flight
         committed, then every keyframe is optimized (the origin fixed) on
-        this system's device and written back under the map lock."""
-        if mesh is not None:
-            raise NotImplementedError("global BA over a device mesh: ROADMAP Queue 1, parallel/ slice")
+        this system's device and written back under the map lock.
+
+        mesh: a torch.distributed process group (every rank calls this on
+        the same map). The points are then sharded over its ranks
+        (parallel/gba.py) and every rank commits the whole result; like the
+        reference's mesh path it solves the monocular rows only."""
         self.mapper.spin(final=True)
+        if mesh is not None:
+            from ..parallel.gba import global_bundle_adjustment_sharded
+
+            global_bundle_adjustment_sharded(self.atlas.current, self.mapper.camera, mesh,
+                                             device=self.device, bf=self.mapper.bf, iters=iters,
+                                             map_lock=self.mapper.map_lock)
+            return
         global_bundle_adjustment(self.atlas.current, self.mapper.camera, device=self.device,
                                  bf=self.mapper.bf, iters=iters, map_lock=self.mapper.map_lock)
 

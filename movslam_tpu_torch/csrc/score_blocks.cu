@@ -24,6 +24,14 @@
 // descriptor once (no repeat_interleave), chooses among its 4 candidates
 // with shuffles, and only the chosen candidate's lanes write its 32 bytes.
 //
+// Streams: score_candidates also scores S streams in one launch (the
+// reference's jax.vmap of the propagation over streams,
+// movslam_tpu/parallel/multistream.py). The images lie back to back, the
+// tracks are S runs of n_per_img and the MV rows S runs of mv_per_img, and
+// the candidate indices are global rows. Track n reads image n / n_per_img,
+// and a slot without a candidate scores that stream's first MV row. With
+// S = 1 (n_per_img >= N) this is the single-image kernel, bit for bit.
+//
 // What bounds it: at the main path's shapes (score_candidates: 2048 tracks,
 // 4096 MVs, 480x640 image; score_blocks: 8192 blocks) the inputs and outputs
 // are 0.57 MB and 0.93 MB, 0.17 us and 0.28 us at 3.35 TB/s, and the
@@ -141,19 +149,23 @@ __global__ void score_candidates_kernel(
     const uint8_t* __restrict__ img, int H, int W, const float* __restrict__ prev_pt,
     const int32_t* __restrict__ cand, const float* __restrict__ mv_delta, int mv_stride,
     const float* __restrict__ prev_wh, const int32_t* __restrict__ prev_desc, float thr,
-    int N, int32_t* __restrict__ out_desc, int32_t* __restrict__ out_dist,
-    int32_t* __restrict__ out_mv, float* __restrict__ out_pt,
+    int N, int n_per_img, int mv_per_img, int32_t* __restrict__ out_desc,
+    int32_t* __restrict__ out_dist, int32_t* __restrict__ out_mv, float* __restrict__ out_pt,
     bool* __restrict__ out_inb) {
   const int n = blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
   if (n >= N) return;  // uniform across the warp
   const int lane = threadIdx.x & 31;
   const int j = lane >> 3;  // candidate slot
   const int w = lane & 7;   // descriptor word
+  const int s = n / n_per_img;  // stream
+  img += static_cast<size_t>(s) * H * W;
 
-  // Candidate position: one f32 add, as prev_pt + mv_delta[max(cand, 0)].
-  // A slot without a candidate (-1) scores mv_delta[0], like the plain version.
+  // Candidate position: one f32 add, as prev_pt + mv_delta[row]. A slot
+  // without a candidate (-1) scores its stream's first row, like the plain
+  // version.
   const int mv = cand[n * kCand + j];
-  const float* delta = mv_delta + static_cast<size_t>(max(mv, 0)) * mv_stride;
+  const int row = mv >= 0 ? mv : s * mv_per_img;
+  const float* delta = mv_delta + static_cast<size_t>(row) * mv_stride;
   const float px = __fadd_rn(prev_pt[2 * n], delta[0]);
   const float py = __fadd_rn(prev_pt[2 * n + 1], delta[1]);
 
@@ -201,7 +213,9 @@ int grid_for(int warps) { return (warps + kWarpsPerBlock - 1) / kWarpsPerBlock; 
 
 // Plain C entry points (bound with ctypes). Tensors are on the current
 // device, contiguous (mv_delta: rows `mv_stride` floats apart); `stream` is
-// a cudaStream_t. Each returns cudaGetLastError() after its launch.
+// a cudaStream_t. score_candidates_launch takes N tracks in runs of
+// n_per_img per image (N for one image) and MV rows in runs of mv_per_img.
+// Each returns cudaGetLastError() after its launch.
 extern "C" int score_blocks_launch(const void* img, int H, int W, const void* tl,
                                    const void* prev, float thr, int B, void* dist,
                                    void* desc, void* stream) {
@@ -218,15 +232,16 @@ extern "C" int score_candidates_launch(const void* img, int H, int W, const void
                                        const void* cand, const void* mv_delta,
                                        int mv_stride, const void* prev_wh,
                                        const void* prev_desc, float thr, int N,
-                                       void* desc, void* dist, void* mv, void* pt,
-                                       void* inb, void* stream) {
-  if (N <= 0) return 0;
+                                       int n_per_img, int mv_per_img, void* desc,
+                                       void* dist, void* mv, void* pt, void* inb,
+                                       void* stream) {
+  if (N <= 0 || n_per_img <= 0) return 0;
   score_candidates_kernel<<<grid_for(N), kWarpsPerBlock * 32, 0,
                             static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint8_t*>(img), H, W, static_cast<const float*>(prev_pt),
       static_cast<const int32_t*>(cand), static_cast<const float*>(mv_delta), mv_stride,
       static_cast<const float*>(prev_wh), static_cast<const int32_t*>(prev_desc), thr, N,
-      static_cast<int32_t*>(desc), static_cast<int32_t*>(dist), static_cast<int32_t*>(mv),
+      n_per_img, mv_per_img, static_cast<int32_t*>(desc), static_cast<int32_t*>(dist), static_cast<int32_t*>(mv),
       static_cast<float*>(pt), static_cast<bool*>(inb));
   return static_cast<int>(cudaGetLastError());
 }

@@ -54,6 +54,7 @@ class MotionVectorImage:
     ft: FrameType = FrameType.P_FRAME
 
     im_gray: np.ndarray | None = None  # (H, W) uint8
+    im_rgb: np.ndarray | None = None  # (H, W, 3) uint8, when the decoder runs with rgb=True
 
     mv_delta: np.ndarray | None = None  # (MAX_MVS, 2) f32
     mv_rect: np.ndarray | None = None  # (MAX_MVS, 4) f32 inclusive x0,y0,x1,y1
@@ -64,6 +65,12 @@ class MotionVectorImage:
     n_kps: int = 0
 
     coverage_area: float = 0.0
+
+    # B-frame forward-prediction records (the C++ reference's bmap,
+    # VideoDecoder.cc:255-286: collected there, read nowhere; so here).
+    bmv_delta: np.ndarray | None = None  # (n_bmvs, 2) f32
+    bmv_rect: np.ndarray | None = None  # (n_bmvs, 4) f32
+    n_bmvs: int = 0
 
     @staticmethod
     def empty(width, height, max_mvs=MAX_MVS, max_kps=MAX_KPS):

@@ -70,11 +70,12 @@ def _total_cost(chi2, w_valid):
     return (rho * w_valid).sum()
 
 
-def schur_reduce(W, g_p, g_l, Hpp, Hll, obs_kf, obs_mp, obs_by_point, lam, K, P, O):
+def schur_reduce(W, g_p, g_l, Hpp, Hll, obs_kf, obs_mp, obs_by_point, lam, K, P, O, lam_pose=None):
     """Marginalize the landmark blocks. Returns (S (6K, 6K) including
-    Hpp + lam I, rhs (K, 6), Hll_inv (P, 3, 3)). Only the observations listed
-    in obs_by_point (at most MOPP per point) couple keyframe pairs, exactly
-    as in the reference."""
+    Hpp + lam_pose I, rhs (K, 6), Hll_inv (P, 3, 3)); lam_pose defaults to
+    lam (the point-sharded BA passes 0 and damps the summed system once).
+    Only the observations listed in obs_by_point (at most MOPP per point)
+    couple keyframe pairs, exactly as in the reference."""
     eye3 = torch.eye(3, dtype=W.dtype, device=W.device)
     eye6 = torch.eye(6, dtype=W.dtype, device=W.device)
     Hll_inv = inv3x3(Hll + lam * eye3 + 1e-8 * eye3, eps=1e-30)
@@ -92,7 +93,7 @@ def schur_reduce(W, g_p, g_l, Hpp, Hll, obs_kf, obs_mp, obs_by_point, lam, K, P,
     ab = (kfp[:, :, None] * K + kfp[:, None, :]).reshape(-1)
     S = -_segment_sum(blocks.reshape(-1, 6, 6), ab, K * K)
     diag = torch.arange(K, device=W.device) * (K + 1)
-    S[diag] += Hpp + lam * eye6
+    S[diag] += Hpp + (lam if lam_pose is None else lam_pose) * eye6
     S = S.reshape(K, K, 6, 6).permute(0, 2, 1, 3).reshape(K * 6, K * 6)
     return S, rhs, Hll_inv
 

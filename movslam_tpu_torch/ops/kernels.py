@@ -48,8 +48,8 @@ _SIGNATURES = {
     # img, H, W, tl, prev, thr, B, dist, desc, stream
     "score_blocks_launch": [_P, _I, _I, _P, _P, _F, _I, _P, _P, _P],
     # img, H, W, prev_pt, cand, mv_delta, mv_stride, prev_wh, prev_desc, thr, N,
-    # desc, dist, mv, pt, inb, stream
-    "score_candidates_launch": [_P, _I, _I, _P, _P, _P, _I, _P, _P, _F, _I,
+    # n_per_img, mv_per_img, desc, dist, mv, pt, inb, stream
+    "score_candidates_launch": [_P, _I, _I, _P, _P, _P, _I, _P, _P, _F, _I, _I, _I,
                                 _P, _P, _P, _P, _P, _P],
 }
 
@@ -112,10 +112,11 @@ def _launch(name, dev, *args):
         raise RuntimeError(f"{name} failed: cudaError {err}")
 
 
-def _check_img(img):
-    if img.dtype != torch.uint8 or img.dim() != 2:
-        raise TypeError(f"img must be (H, W) uint8, got {tuple(img.shape)} {img.dtype}")
-    H, W = img.shape
+def _check_img(img, streams=False):
+    if img.dtype != torch.uint8 or img.dim() not in ((2, 3) if streams else (2,)):
+        want = "(H, W) or (S, H, W)" if streams else "(H, W)"
+        raise TypeError(f"img must be {want} uint8, got {tuple(img.shape)} {img.dtype}")
+    H, W = img.shape[-2:]
     if H < express.BLOCK or W < express.BLOCK:
         raise ValueError(f"image {H}x{W} smaller than a {express.BLOCK}x{express.BLOCK} block")
 
@@ -189,28 +190,44 @@ def _block_inbounds(pt, wh, width, height):
     return (tlx >= 0) & (tly >= 0) & (tlx + whi[..., 0] < width) & (tly + whi[..., 1] < height)
 
 
+def _streams(img, N, M):
+    """Number of streams S of a (H, W) or (S, H, W) image; N tracks and M MV
+    rows must split into S equal runs."""
+    S = img.shape[0] if img.dim() == 3 else 1
+    if S < 1 or N % S or M % S:
+        raise ValueError(f"{N} tracks and {M} MV rows do not split into {S} streams")
+    return S
+
+
 def score_candidates_ref(img, prev_pt, cand, mv_delta, prev_wh, prev_desc, threshold,
                          block_scorer=score_blocks_ref):
     """Plain PyTorch score_candidates: score each track's 4 MV candidates
     and choose one (the per-track step of MOVExtractor.cc:264-300).
 
-    A candidate sits at prev_pt + mv_delta[max(cand, 0)]; its block's
-    top-left truncates toward zero. Unusable candidates (none, or out of
-    bounds) never win; slot 0 is kept unless the track has a second
-    candidate and the best usable one scores strictly below 256; ties go to
-    the first. `block_scorer` scores the (N*4) blocks (score_blocks_ref, or
-    the score_blocks kernel to time the unfused composition on the card).
+    A candidate sits at prev_pt + mv_delta[cand] (a slot without one, -1,
+    at its stream's first MV row); its block's top-left truncates toward
+    zero. Unusable candidates (none, or out of bounds) never win; slot 0 is
+    kept unless the track has a second candidate and the best usable one
+    scores strictly below 256; ties go to the first. `block_scorer` scores
+    each stream's (N/S*4) blocks (score_blocks_ref, or the score_blocks
+    kernel to time the unfused composition on the card).
     Returns (mv (N,) i32 chosen MV index or -1, new_pt (N, 2) f32,
     dist (N,) i32, desc (N, 8) i32, inb (N,) bool)."""
-    H, W = img.shape
-    N = prev_pt.shape[0]
-    cand_safe = cand.clamp(min=0).to(torch.int64)
+    H, W = img.shape[-2:]
+    N, M = prev_pt.shape[0], mv_delta.shape[0]
+    S = _streams(img, N, M)
+    stream_row0 = (torch.arange(N, device=cand.device) // (N // S if N else 1)) * (M // S)
+    cand_safe = torch.where(cand >= 0, cand.to(torch.int64), stream_row0[:, None])
     cand_pt = prev_pt[:, None, :] + mv_delta[cand_safe]  # (N, 4, 2)
     cand_inb = _block_inbounds(cand_pt, prev_wh[:, None, :], W, H)
 
     tl = (cand_pt.to(torch.int32).reshape(-1, 2) - express.BLOCK // 2).contiguous()
     prev_rep = prev_desc.repeat_interleave(N_CAND, dim=0).contiguous()
-    dist_flat, desc_flat = block_scorer(img, tl, prev_rep, threshold)
+    imgs = img if img.dim() == 3 else img[None]
+    scored = [block_scorer(im, tl_s.contiguous(), prev_s.contiguous(), threshold)
+              for im, tl_s, prev_s in zip(imgs, tl.chunk(S), prev_rep.chunk(S))]
+    dist_flat = torch.cat([d for d, _ in scored])
+    desc_flat = torch.cat([d for _, d in scored])
     cand_desc = desc_flat.reshape(N, N_CAND, 8)
     cand_dist = dist_flat.reshape(N, N_CAND)
 
@@ -233,10 +250,13 @@ def score_candidates(img, prev_pt, cand, mv_delta, prev_wh, prev_desc, threshold
     img (H, W) u8; prev_pt (N, 2) f32; cand (N, 4) i32 MV indices or -1;
     mv_delta (M, 2) f32 (its rows may be strided, e.g. a column slice of the
     packed MV table); prev_wh (N, 2) f32; prev_desc (N, 8) i32.
+    S streams in one call: img (S, H, W), the tracks S runs of N/S rows, the
+    MV rows S runs of M/S, and cand global MV rows (stream s's offset by
+    s*M/S); track n reads image n // (N/S).
     CUDA tensors launch csrc/score_blocks.cu; CPU tensors run
     score_candidates_ref. Any other device, dtype, shape or layout raises.
     Returns (mv, new_pt, dist, desc, inb) as score_candidates_ref does."""
-    _check_img(img)
+    _check_img(img, streams=True)
     if cand.dtype != torch.int32 or cand.dim() != 2 or cand.shape[1] != N_CAND:
         raise TypeError(f"cand must be (N, {N_CAND}) int32, got {tuple(cand.shape)} {cand.dtype}")
     N = cand.shape[0]
@@ -247,13 +267,16 @@ def score_candidates(img, prev_pt, cand, mv_delta, prev_wh, prev_desc, threshold
         raise TypeError(f"mv_delta must be (M, 2) float32, got {tuple(mv_delta.shape)} {mv_delta.dtype}")
     if N and mv_delta.shape[0] == 0:
         raise ValueError("mv_delta needs at least one row: a track without a candidate scores row 0")
+    S = _streams(img, N, mv_delta.shape[0])
     dev = _common_device("score_candidates", img, prev_pt, cand, mv_delta, prev_wh, prev_desc)
     if dev.type == "cpu":
         return score_candidates_ref(img, prev_pt, cand, mv_delta, prev_wh, prev_desc, threshold)
     _check_card_layout("score_candidates", img, prev_pt, cand, prev_wh, prev_desc)
     if mv_delta.stride(1) != 1:
         raise ValueError("score_candidates needs mv_delta's two columns side by side")
-    H, W = img.shape
+    H, W = img.shape[-2:]
+    if S > 1 and (H * W) % 4:
+        raise ValueError("score_candidates over streams needs H * W a multiple of 4 (aligned images)")
     # One allocation, five planes: desc (8N), dist (N), mv (N), new_pt (2N
     # floats), inb (N bools in ceil(N/4) words).
     out = torch.empty(12 * N + (N + 3) // 4, dtype=torch.int32, device=dev)
@@ -265,7 +288,8 @@ def score_candidates(img, prev_pt, cand, mv_delta, prev_wh, prev_desc, threshold
     if N:
         _launch("score_candidates_launch", dev, img.data_ptr(), H, W, prev_pt.data_ptr(),
                 cand.data_ptr(), mv_delta.data_ptr(), mv_delta.stride(0), prev_wh.data_ptr(),
-                prev_desc.data_ptr(), float(threshold), N, desc.data_ptr(), dist.data_ptr(),
+                prev_desc.data_ptr(), float(threshold), N, N // S, mv_delta.shape[0] // S,
+                desc.data_ptr(), dist.data_ptr(),
                 mv.data_ptr(), new_pt.data_ptr(), inb.data_ptr())
         score_candidates.launches += 1
     return mv, new_pt, dist, desc, inb

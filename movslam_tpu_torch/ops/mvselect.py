@@ -12,9 +12,10 @@ N_CAND = 4  # the reference's 4 mvi slots per pixel
 
 
 def _contains(pts, mv_rect):
-    ix = torch.floor(pts[:, 0])[:, None]
-    iy = torch.floor(pts[:, 1])[:, None]
-    x0, y0, x1, y1 = mv_rect[:, 0], mv_rect[:, 1], mv_rect[:, 2], mv_rect[:, 3]
+    """(..., N, M) containment of floor(pts (..., N, 2)) in mv_rect (..., M, 4)."""
+    ix = torch.floor(pts[..., 0])[..., None]
+    iy = torch.floor(pts[..., 1])[..., None]
+    x0, y0, x1, y1 = (mv_rect[..., None, :, c] for c in range(4))
     return (ix >= x0) & (ix <= x1) & (iy >= y0) & (iy <= y1)
 
 
@@ -23,16 +24,18 @@ def candidate_mvs(track_pt, track_valid, mv_rect, mv_valid):
 
     track_pt (N, 2) f32; track_valid (N,) bool; mv_rect (M, 4) f32 inclusive
     (x0, y0, x1, y1); mv_valid (M,) bool. Slot k holds the (k+1)-th MV whose
-    rect contains floor(pt) (MOVExtractor.cc:264-270)."""
-    contains = _contains(track_pt, mv_rect) & mv_valid[None, :] & track_valid[:, None]
-    rank = torch.cumsum(contains.to(torch.int32), dim=1) - 1
-    m_idx = torch.arange(mv_rect.shape[0], dtype=torch.int32, device=mv_rect.device)
+    rect contains floor(pt) (MOVExtractor.cc:264-270). With a leading
+    stream axis on every argument ((S, N, 2), (S, M, 4), ...) each stream's
+    tracks join its own MVs: (S, N, 4) indices into the stream's rows."""
+    contains = _contains(track_pt, mv_rect) & mv_valid[..., None, :] & track_valid[..., None]
+    rank = torch.cumsum(contains.to(torch.int32), dim=-1) - 1
+    m_idx = torch.arange(mv_rect.shape[-2], dtype=torch.int32, device=mv_rect.device)
     neg = torch.tensor(-1, dtype=torch.int32, device=mv_rect.device)
     slots = [
-        torch.where(contains & (rank == k), m_idx, neg).amax(dim=1)
+        torch.where(contains & (rank == k), m_idx, neg).amax(dim=-1)
         for k in range(N_CAND)
     ]
-    return torch.stack(slots, dim=1)
+    return torch.stack(slots, dim=-1)
 
 
 def point_covered(pts, mv_rect, mv_valid):

@@ -415,3 +415,66 @@ def test_global_ba_on_the_card_agrees_with_the_cpu(card):
     assert og == oc
     for name, g, c in (("R", Rg, Rc), ("t", tg, tc), ("points", Xg, Xc)):
         np.testing.assert_allclose(g, c, rtol=0, atol=1e-4, err_msg=name)
+
+
+def test_score_candidates_over_streams_matches_plain_version(card):
+    """S = 8 streams in one launch against the plain version and against 8
+    single-stream launches, bit-exact."""
+    S, N, M = 8, 256, 512
+    cases = [candidate_case(40 + s, H=480, W=640, N=N, M=M) for s in range(S)]
+    singles = [kernels.score_candidates(*(torch.as_tensor(c[k], device=card) for k in CAND_ARGS), 25.0)
+               for c in cases]
+    cand = np.concatenate([np.where(c["cand"] >= 0, c["cand"] + s * M, -1) for s, c in enumerate(cases)])
+    args = [torch.as_tensor(np.stack([c["img"] for c in cases]), device=card)]
+    args += [torch.as_tensor(np.concatenate([c[k] for c in cases]), device=card) for k in CAND_ARGS[1:]]
+    args[2] = torch.as_tensor(cand.astype(np.int32), device=card)
+    before = kernels.score_candidates.launches
+    got = kernels.score_candidates(*args, 25.0)
+    torch.cuda.synchronize()
+    assert kernels.score_candidates.launches == before + 1
+    want = kernels.score_candidates_ref(*args, 25.0)
+    offset = torch.as_tensor(np.repeat(np.arange(S) * M, N), dtype=torch.int32, device=card)
+    mv = torch.cat([s[0] for s in singles])
+    for name, g, w, one in zip(("mv", "new_pt", "dist", "desc", "inb"), got, want,
+                               [torch.where(mv >= 0, mv + offset, mv)] + [torch.cat(x) for x in list(zip(*singles))[1:]]):
+        assert g.dtype == w.dtype and torch.equal(g, w) and torch.equal(g, one), name
+
+
+def test_sharded_ba_on_the_card_agrees_with_ba_solve(card):
+    """parallel/sharded_ba.py on one NCCL rank (a HashStore, world size 1)
+    against ops/ba.ba_solve on the card, at tests/test_parallel.py's
+    tolerances. The case is monocular with one fixed keyframe, so its scale
+    is free, and the card's atomic sums give each solve its own rounding:
+    two ba_solve calls part along that scale too (printed, -s). Poses and
+    points are compared once the scale about the fixed keyframe is removed
+    (parallel/gba.remove_scale_gauge)."""
+    import torch.distributed as dist
+
+    from movslam_tpu_torch.ops.ba import ba_solve
+    from movslam_tpu_torch.parallel.gba import remove_scale_gauge
+    from movslam_tpu_torch.parallel.sharded_ba import make_sharded_ba
+    from tests._torch_dist import sharded_ba_case
+
+    case = sharded_ba_case(np.random.default_rng(12345))
+    T = lambda x: torch.as_tensor(x, device=card)  # noqa: E731
+    base = [T(case[k]) for k in ("kf_R", "kf_t", "kf_fixed", "kf_valid", "mp_pos", "mp_valid",
+                                 "obs_kf", "obs_mp", "obs_uv", "obs_valid", "obp_single")]
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0, world_size=1)
+    try:
+        R, t, X, costs = make_sharded_ba(iters=8)(*base, *case["intr"])
+    finally:
+        dist.destroy_process_group()
+    res = ba_solve(*base, *case["intr"], iters=8)
+    again = ba_solve(*base, *case["intr"], iters=8)
+    Ra, ta, Xa = (x.double().cpu().numpy() for x in (R, t, X))
+    Rb, tb, Xb = (res[k].double().cpu().numpy() for k in ("kf_R", "kf_t", "mp_pos"))
+    scale, t_s, X_s = remove_scale_gauge(Ra, ta, Xa, Rb, tb, 0)
+    t2, X2 = (again[k].double().cpu().numpy() for k in ("kf_t", "mp_pos"))
+    print(f"sharded vs ba_solve: max |t| {np.abs(ta - tb).max():.3e}, |X| {np.abs(Xa - Xb).max():.3e}; "
+          f"scale {scale:.6f}, then |t| {np.abs(t_s - tb).max():.3e}, |X| {np.abs(X_s - Xb).max():.3e}; "
+          f"ba_solve twice: |t| {np.abs(t2 - tb).max():.3e}, |X| {np.abs(X2 - Xb).max():.3e}")
+    np.testing.assert_allclose(Ra, Rb, atol=5e-3)
+    np.testing.assert_allclose(t_s, tb, atol=5e-3)
+    np.testing.assert_allclose(X_s, Xb, atol=5e-2)
+    costs = costs.cpu().numpy()
+    assert costs[-1] <= costs[0] and costs[-1] <= float(res["cost"]) * 1.1 + 1e-3

@@ -114,8 +114,8 @@ def test_later_slices_name_their_queue_item():
     with pytest.raises(ValueError, match="Stereo"):
         system.track_stereo(0.0, None, None)
     assert system.global_bundle_adjustment() is None  # ported: runs on the system's device
-    with pytest.raises(NotImplementedError, match="parallel/ slice"):
-        system.global_bundle_adjustment(mesh=object())  # the sharded solve waits for that slice
+    with pytest.raises(RuntimeError, match="process group"):
+        system.global_bundle_adjustment(mesh=object())  # ported: sharded over a group, never without one
     vi = System(port_settings(), System.IMU_MONOCULAR, device="cpu")  # the VI slice is ported
     assert vi.imu_buffer is vi.mapper.imu_buffer and system.imu_buffer is None
     with pytest.raises(ValueError, match="Stereo"):
