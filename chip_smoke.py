@@ -3,8 +3,8 @@
     python3 chip_smoke.py
 
 Phases (any failure exits nonzero and prints no result line):
-  1. build   : compile movslam_tpu_torch/csrc/score_blocks.cu with nvcc
-               (both kernels).
+  1. build   : compile movslam_tpu_torch/csrc/score_blocks.cu (two
+               kernels) and csrc/segment_sum.cu with nvcc, in parallel.
   2. kernels : each kernel on the card against its plain PyTorch version,
                bit-exact: score_blocks at B = 8192 blocks of a 480x640 image
                and on border coordinates; score_candidates at N = 2048
@@ -17,16 +17,29 @@ Phases (any failure exits nonzero and prints no result line):
                CUDA graph of 200 launches), the profiler's kernel time,
                wrapper time per call (events around one Python call), the
                plain version's times, and the bound from this run's bytes.
+               segment_sum at phase 3's local-BA shapes (K = 48, P = 1024,
+               O = 4096) and at the global-BA caps (K = 768, P = 16,384,
+               O = 65,536): each sum of ops/ba.py (by keyframe, C = 6 and
+               36; by point, C = 3 and 9; the Schur pair scatter, C = 36)
+               on the plans of ops/ba.segment_plans and on plans of every
+               row, inputs made on the card: bit-equal to CPU index_add_
+               on the same inputs, and two launches bit-equal; device time
+               per launch (graph of 200, or 20 at the caps' pair scatter),
+               wrapper and plain times, and index_add_'s device time.
   3. drive   : System.track_monocular on device="cuda" over
                SyntheticStream(n_points=400, seed=11) for 40 frames at
                640x480, with the gates of tests/test_pipeline.py (0 lost,
-               live ATE < 0.35 m, post-hoc ATE < 0.10 m) and
-               score_candidates launched once on every P-frame.
-  4. launches: the first 20 frames of the same drive twice more, frames
-               16-19 under torch.profiler: as it is, and with the scoring
-               step put back to the unfused composition (the score_blocks
-               kernel inside score_candidates_ref), counting CUDA launches
-               per frame.
+               live ATE < 0.35 m, post-hoc ATE < 0.10 m),
+               score_candidates launched once on every P-frame and
+               segment_sum launched. Then the same drive again with the
+               same seed, frames 16-19 under torch.profiler: every
+               dispatched program's int32 wire, every pose and the
+               trajectory bit-equal to the first drive's.
+  4. launches: CUDA launches per frame over frames 16-19: those of phase
+               3's repeat (the fused scoring), and those of the first 20
+               frames driven once more with the scoring step put back to
+               the unfused composition (the score_blocks kernel inside
+               score_candidates_ref).
   5. windows : the windowed drive on the card at full width (640x480,
                2048 tracks, 4096 MVs, SNAP_CAP 4096, mapper class 32/1024/4096,
                W=8, pipeline_depth=2) over SyntheticStream(n_points=400,
@@ -42,7 +55,8 @@ Phases (any failure exits nonzero and prints no result line):
                the ATE bounds of phase 3, at least one speculative window and
                one mapper job committed from a window's wire, and
                score_candidates launched once for every P-frame the system
-               says it dispatched (re-dispatches after rewinds included).
+               says it dispatched (re-dispatches after rewinds included),
+               segment_sum launched.
   6. stereo  : System(settings, STEREO) on the card at full width (640x480,
                b = 0.25 m, bf = 80) over SyntheticStereoStream(seed=5): a
                per-frame drive of 25 pairs (track_stereo) and a windowed
@@ -91,7 +105,8 @@ Phases (any failure exits nonzero and prints no result line):
                keyframes, 16,384 points, every one observed, and 128
                observations per keyframe, 20 iterations: the map at those
                caps, every non-anchor keyframe moved, finite, the
-               reprojection error fell; ms, peak device memory, launches.
+               reprojection error fell; ms, peak device memory, launches;
+               segment_sum launched over the phase.
   9. ingest  : whether pkg-config finds libav (libavformat, libavcodec,
                libavutil, libswscale). Where it does: build the port's
                native decoder, encode 320 frames of SyntheticStream(
@@ -104,8 +119,10 @@ Phases (any failure exits nonzero and prints no result line):
                score_candidates once per dispatched P-frame. Where it does
                not, one line says so and the phase goes on. Either way:
                synthetic://n_frames=48 through cli.mono_drive and cli._finish
-               in a temporary directory (results.txt: 48 frames, 0 lost;
-               both trajectory files).
+               in a temporary directory, the System made by the CLI with
+               --viewer (results.txt: 48 frames, 0 lost; both trajectory
+               files; the viewer saw 48 frames; whether cv2 is found and the
+               PNGs written: 48 with cv2, none without).
  10. parallel: a one-rank NCCL group (HashStore). (a) parallel/multistream
                over 8 streams x 2048 tracks at 640x480: one
                score_candidates launch, results equal to 8 single-stream
@@ -115,11 +132,16 @@ Phases (any failure exits nonzero and prints no result line):
                free scale removed, within 5e-3; points seen from two
                keyframes or more within 5e-2 without the scale; the best
                cost <= 1.1x ba_solve's + 1e-3, tests/test_parallel.py's
-               criterion); (c) System.global_bundle_adjustment(iters=40,
+               criterion; two ba_solve calls bit-equal, and whether the
+               sharded BA equals ba_solve bit for bit, printed);
+               (c) System.global_bundle_adjustment(iters=40,
                mesh=group) against mesh=None on two copies of phase 3's
                map (the same keyframes and points, pruning apart on <= 1%
                of the points; without the scale, poses within 5e-3 and
-               points seen twice or more within 5e-2).
+               points seen twice or more within 5e-2); segment_sum launched
+               over (b) and (c).
+Every drive and phases 8 and 10 also gate that segment_sum launched (the
+BA's and pose graph's ordered sums).
 Before the last line it prints the card's name and power limit and one JSON
 line describing each kernel; the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -129,7 +151,9 @@ this script checks that none of them was loaded.
 from __future__ import annotations
 
 import collections
+import contextlib
 import functools
+import hashlib
 import json
 import os
 import subprocess
@@ -175,6 +199,20 @@ LIVE_ATE_MAX = 0.35
 HBM_BYTES_PER_S = 3.35e12
 SCALAR_OPS_PER_S = 67e12
 BANNED = ("jax", "flax", "movslam_tpu")
+
+
+KERNELS = ("score_candidates", "score_blocks", "segment_sum")
+
+
+def reset_launches(kernels):
+    """Set every kernel wrapper's launch count to 0."""
+    for name in KERNELS:
+        getattr(kernels, name).launches = 0
+
+
+def kernel_launches(kernels):
+    """Every kernel wrapper's launch count, by name."""
+    return {name: getattr(kernels, name).launches for name in KERNELS}
 
 
 def fail(msg):
@@ -311,9 +349,122 @@ def candidate_case(kernels, rng, dev, H, W, N, M):
     return args + [prev.contiguous()]
 
 
-def drive(system_cls, settings, frames, monocular, profile_frames=()):
+def ba_index_case(rng, K, P, O, n_kf, n_mp, lo, hi, mopp=16):
+    """The index arrays of a BA problem as core/local_mapping assembles
+    them: n_mp of P points, each seen from lo..hi of the first n_kf of K
+    keyframes (distinct), point-major, cut or padded to O rows (padding:
+    keyframe 0, point 0, invalid), and obs_by_point (P, mopp)."""
+    import numpy as np
+
+    from movslam_tpu_torch.ops.ba import build_obs_by_point
+
+    n_obs = rng.integers(lo, hi + 1, n_mp)
+    kf_choice = np.argsort(rng.random((n_mp, n_kf)), axis=1)[:, :hi]
+    take = np.arange(hi)[None, :] < n_obs[:, None]
+    obs_kf = np.zeros(O, np.int64)
+    obs_mp = np.zeros(O, np.int64)
+    valid = np.zeros(O, bool)
+    n = min(int(take.sum()), O)
+    obs_kf[:n] = kf_choice[take][:n]
+    obs_mp[:n] = np.nonzero(take)[0][:n]
+    valid[:n] = True
+    obp = build_obs_by_point(np.where(valid, obs_mp, P), P, mopp, O)
+    return obs_kf, obs_mp, valid, obp
+
+
+def spread_values(gen, shape):
+    """f32 values on gen's device whose sum depends on its order: signs
+    mixed, magnitudes 1e-4 to 1e4 row by row."""
+    import torch
+
+    dev = gen.device
+    mag = 10.0 ** (8.0 * torch.rand((shape[0],) + (1,) * (len(shape) - 1), generator=gen, device=dev) - 4.0)
+    return torch.randn(shape, generator=gen, device=dev) * mag
+
+
+def segment_sum_phase(kernels, rng, dev, card):
+    """Phase 2's segment_sum part: at phase 3's local-BA shapes and at the
+    global-BA caps, every sum of ops/ba.py (by keyframe, by point, the Schur
+    pair scatter) through the kernel on the plans ops/ba.segment_plans
+    builds, against CPU index_add_ over every row of the same inputs:
+    bit-equal, and two launches bit-equal. Rows a plan leaves out are
+    zeroed first, as the BA's are. Also unmasked plans (every row). The
+    values are made on the card and copied to the CPU. Returns (max abs
+    error, timings by case)."""
+    import numpy as np
+    import torch
+
+    from movslam_tpu_torch.ops import ba
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+
+    shapes = {  # K, P, O, keyframes and points in use, observations per point
+        "local_ba": (48, 1024, 4096, 11, 527, 2, 8),
+        "gba_caps": (768, GBA_TOP_MP, 65536, GBA_TOP_KF, GBA_TOP_MP, 4, 4),
+    }
+    err, times = 0.0, {}
+    for label, (K, P, O, n_kf, n_mp, lo, hi) in shapes.items():
+        obs_kf, obs_mp, valid, obp = ba_index_case(rng, K, P, O, n_kf, n_mp, lo, hi)
+        okf, omp, oval, oobp = (torch.as_tensor(a, device=dev) for a in (obs_kf, obs_mp, valid, obp))
+        plans = ba.segment_plans(okf, omp, oval, oobp, K, P, O)
+        pad = obp < O
+        pair_keep = (pad[:, :, None] & pad[:, None, :]).reshape(-1)
+        kfp = obs_kf[np.minimum(obp, O - 1)]
+        ab = (kfp[:, :, None] * K + kfp[:, None, :]).reshape(-1)
+        cases = {  # name: (plan key, index, segments, trailing shape, rows kept)
+            "kf_C6": ("kf", obs_kf, K, (6,), valid), "kf_C36": ("kf", obs_kf, K, (6, 6), valid),
+            "mp_C3": ("mp", obs_mp, P, (3,), valid), "mp_C9": ("mp", obs_mp, P, (3, 3), valid),
+            "pair_C36": ("pair", ab, K * K, (6, 6), pair_keep),
+        }
+        for name, (key, idx, n, trail, keep) in cases.items():
+            keep_d = torch.as_tensor(keep, device=dev).reshape((-1,) + (1,) * len(trail))
+            xd = spread_values(gen, (len(idx),) + trail) * keep_d  # left-out rows carry zeros, as the BA's
+            want = torch.zeros((n,) + trail).index_add_(0, torch.as_tensor(idx), xd.cpu())
+            full = kernels.segment_plan(torch.as_tensor(idx, device=dev), n)
+            x_full = spread_values(gen, (len(idx),) + trail)
+            want_full = torch.zeros((n,) + trail).index_add_(0, torch.as_tensor(idx), x_full.cpu())
+            got = [kernels.segment_sum(xd, plans[key]) for _ in range(2)]
+            got_full = [kernels.segment_sum(x_full, full) for _ in range(2)]
+            torch.cuda.synchronize()
+            for g, w, what in ((got[0], want, "plan of ops/ba.segment_plans"),
+                               (got_full[0], want_full, "plan of every row")):
+                e = max_err([g.cpu()], [w])
+                err = max(err, e)
+                if e or not torch.equal(g.cpu(), w):
+                    fail(f"segment_sum {label} {name} ({what}) is not bit-equal to CPU index_add_: {e}")
+            if not (torch.equal(got[0], got[1]) and torch.equal(got_full[0], got_full[1])):
+                fail(f"segment_sum {label} {name}: two launches on the same inputs differ")
+            plan = plans[key]
+            kept = int(plan.offsets[-1])
+            C = int(np.prod(trail))
+            nbytes = 4 * (kept * C + kept + (n + 1) + n * C)
+            idx_d = torch.as_tensor(idx, device=dev)
+            big = len(idx) * C > 2**24  # index_add_ over every row: ~9 ms a call at the caps
+            t = {
+                "ms": graph_ms(lambda: kernels.segment_sum(xd, plan), n=20 if big else GRAPH_LAUNCHES),
+                "wrapper_ms": call_ms(lambda: kernels.segment_sum(xd, plan), reps=20),
+                "plain_ms": call_ms(lambda: kernels.segment_sum_ref(xd, plan), reps=10),
+                "library_ms": graph_ms(lambda: torch.zeros((n,) + trail, device=dev).index_add_(0, idx_d, xd),
+                                       n=20 if big else GRAPH_LAUNCHES),
+                "rows": len(idx), "rows_kept": kept, "segments": n, "columns": C, "bytes": nbytes,
+            }
+            t["bound_ms"], t["bound_by"] = bound(nbytes, kept * C)
+            times[f"{label} {name}"] = t
+            print(f"kernels: segment_sum {label} {name}: {len(idx)} rows ({kept} in the plan) x {C} into "
+                  f"{n} segments, bit-equal to CPU index_add_ and run to run; device {t['ms'] * 1e3:.3f} "
+                  f"us/launch, wrapper {t['wrapper_ms'] * 1e3:.2f} us/call, plain {t['plain_ms'] * 1e3:.2f} "
+                  f"us/call, index_add_ {t['library_ms'] * 1e3:.3f} us/launch (device, zeros included), bound "
+                  f"{t['bound_ms'] * 1e3:.4f} us ({t['bound_by']}, {nbytes} B) on {card}", flush=True)
+            del xd, x_full, got, got_full
+        torch.cuda.empty_cache()
+    return err, times
+
+
+def drive(system_cls, settings, frames, monocular, profile_frames=(), poses=None):
     """One per-frame drive; returns (system, est centers, profiler or None,
-    wall seconds of the profiled frames)."""
+    wall seconds of the profiled frames). Appends each returned pose to
+    `poses` when it is a list."""
     import torch
     from torch.profiler import profile
 
@@ -326,6 +477,8 @@ def drive(system_cls, settings, frames, monocular, profile_frames=()):
             prof.__enter__()
             t0 = time.perf_counter()
         pose = system.track_monocular(smv.timestamp, smv)
+        if poses is not None:
+            poses.append(pose)
         if pose is not None:
             R, t = pose
             est[k] = -(R.T @ t)
@@ -335,6 +488,89 @@ def drive(system_cls, settings, frames, monocular, profile_frames=()):
             prof.__exit__(None, None, None)
     torch.cuda.synchronize()
     return system, est, prof, wall
+
+
+@contextlib.contextmanager
+def recorded_wires():
+    """Keep a copy of the int32 wire of every per-frame and window program
+    the System dispatches (a device copy, no sync), in dispatch order."""
+    from movslam_tpu_torch.core import system as sysmod
+
+    wires = []
+    originals = sysmod.tracked_frame_step, sysmod.tracked_window_step
+
+    def recording(fn):
+        def call(*args, **kwargs):
+            out = fn(*args, **kwargs)
+            wires.append(out["wire"].clone())
+            return out
+        return call
+
+    sysmod.tracked_frame_step, sysmod.tracked_window_step = map(recording, originals)
+    try:
+        yield wires
+    finally:
+        sysmod.tracked_frame_step, sysmod.tracked_window_step = originals
+
+
+def digests(arrays):
+    """A short hash of each array's bytes (tensors are copied to the host)."""
+    import numpy as np
+
+    out = []
+    for a in arrays:
+        a = a.cpu().numpy() if hasattr(a, "cpu") else np.asarray(a)
+        out.append(hashlib.sha1(np.ascontiguousarray(a).tobytes()).hexdigest()[:16])
+    return out
+
+
+def repro_drive(System, settings, monocular, frames, batches=None):
+    """One drive of `frames` on the card for the reproducibility check: per
+    frame (track_monocular) when batches is None, else windowed
+    (track_monocular_batch over (start, stop, flush) batches). Returns the
+    system (shut down) and dict(wires: digest per dispatched program,
+    poses: digest per frame of the returned pose, None where none,
+    trajectory: digest of frame_trajectory())."""
+    import torch
+
+    system = System(settings, monocular, device="cuda")
+    with recorded_wires() as wires:
+        if batches is None:
+            poses = [system.track_monocular(f.timestamp, f) for f in frames]
+        else:
+            items = [(f.timestamp, f) for f in frames]
+            poses = []
+            for a, b, flush in batches:
+                poses += system.track_monocular_batch(items[a:b], flush=flush)
+        system.shutdown()
+        torch.cuda.synchronize()
+    return system, {"wires": digests(wires), "poses": pose_digests(poses),
+                    "trajectory": trajectory_digest(system)}
+
+
+def pose_digests(poses):
+    """digests() of each returned pose, (R, t) or None."""
+    import numpy as np
+
+    return digests([np.concatenate([np.ravel(p[0]), np.ravel(p[1])]) if p is not None else np.zeros(0)
+                    for p in poses])
+
+
+def trajectory_digest(system):
+    """digests() of system.frame_trajectory()'s timestamps and poses."""
+    import numpy as np
+
+    return digests([np.array([np.concatenate([[ts], np.ravel(R), np.ravel(t)])
+                              for ts, R, t, _ in system.frame_trajectory()])])[0]
+
+
+def first_difference(a, b):
+    """Index of the first unequal entry of two lists (the shorter length
+    when one is a prefix of the other), or None when they are equal."""
+    for i, (x, y) in enumerate(zip(a, b)):
+        if x != y:
+            return i
+    return None if len(a) == len(b) else min(len(a), len(b))
 
 
 def drive_activities():
@@ -376,7 +612,7 @@ def windowed_phase(System, settings, monocular, SyntheticStream, kernels, card):
     items = [(f.timestamp, f) for f in (stream.frame(k) for k in range(n_fed))]  # rendering is set-up
     gt = lambda k: -(stream.gt_pose(k)[0].T @ stream.gt_pose(k)[1])  # noqa: E731
 
-    kernels.score_blocks.launches = kernels.score_candidates.launches = 0
+    reset_launches(kernels)
     system = System(settings, monocular, device="cuda")
     system._prof = collections.defaultdict(float)
     poses = []
@@ -420,8 +656,7 @@ def windowed_phase(System, settings, monocular, SyntheticStream, kernels, card):
     loc_after = (m.n_keyframes(), m.n_mappoints(), m.change_index)
     loc_answered = sum(p is not None for p in loc_poses)
     poses += loc_poses
-    launches = {"score_candidates": kernels.score_candidates.launches,
-                "score_blocks": kernels.score_blocks.launches}
+    launches = kernel_launches(kernels)
     system.shutdown()
     torch.cuda.synchronize()
 
@@ -489,6 +724,7 @@ def windowed_phase(System, settings, monocular, SyntheticStream, kernels, card):
         "a speculative window": c["spec_windows"] >= 1,
         "a mapper job committed from a window's wire": system.mapper.n_fused_jobs >= 1,
         "score_candidates once per dispatched P-frame": launches["score_candidates"] == dispatched,
+        "segment_sum launched": launches["segment_sum"] > 0,
         "localization mode leaves the map as it was": loc_after == frozen,
         f">= {W_LOC - 4} of {W_LOC} localization frames answered": loc_answered >= W_LOC - 4,
     }
@@ -560,12 +796,11 @@ def stereo_phase(System, settings, stereo, State, SyntheticStereoStream, kernels
             "slots_with_depth": float(np.mean([(kf.depth_right > 0).mean() for kf in kfs])),
             "rewinds": c["rewinds"], "window_frames": c["window_frames"], "per_frame_p": c["per_frame_p"],
             "p_frames_dispatched": c["window_frames"] + c["per_frame_p"],
-            "launches": {"score_candidates": kernels.score_candidates.launches,
-                         "score_blocks": kernels.score_blocks.launches},
+            "launches": kernel_launches(kernels),
         }
 
     # The per-frame drive.
-    kernels.score_blocks.launches = kernels.score_candidates.launches = 0
+    reset_launches(kernels)
     psys = System(settings, stereo, device="cuda")
     poses = []
     for k, it in enumerate(items[:S_PER_FRAME]):
@@ -587,7 +822,7 @@ def stereo_phase(System, settings, stereo, State, SyntheticStereoStream, kernels
           f"for {pf['p_frames_dispatched']} left P-frames on {card}", flush=True)
 
     # The windowed drive.
-    kernels.score_blocks.launches = kernels.score_candidates.launches = 0
+    reset_launches(kernels)
     system = System(settings, stereo, device="cuda")
     poses = []
     for k in range(0, S_WARM, W_BATCH):  # the last warm-up batch drains the pipeline
@@ -684,6 +919,8 @@ def stereo_phase(System, settings, stereo, State, SyntheticStereoStream, kernels
             win["launches"]["score_candidates"] == win["p_frames_dispatched"] > 0,
         "per frame: score_candidates once per left P-frame":
             pf["launches"]["score_candidates"] == pf["p_frames_dispatched"] > 0,
+        "windowed: segment_sum launched": win["launches"]["segment_sum"] > 0,
+        "per frame: segment_sum launched": pf["launches"]["segment_sum"] > 0,
         "a stereo window ran": win["window_frames"] > 0,
         "a mapper job with bf != 0 committed from a window's wire":
             system.mapper.n_fused_jobs >= 1 and system.mapper.bf != 0,
@@ -731,12 +968,11 @@ def vi_phase(System, settings, sensor, SyntheticVIStream, kernels, card):
             "err_bound_m": 0.15 * max(span, 0.5),
             "window_frames": c["window_frames"], "per_frame_p": c["per_frame_p"],
             "p_frames_dispatched": c["window_frames"] + c["per_frame_p"], "rewinds": c["rewinds"],
-            "launches": {"score_candidates": kernels.score_candidates.launches,
-                         "score_blocks": kernels.score_blocks.launches},
+            "launches": kernel_launches(kernels),
         }
 
     # The per-frame drive.
-    kernels.score_blocks.launches = kernels.score_candidates.launches = 0
+    reset_launches(kernels)
     psys = System(settings, sensor, device="cuda")
     psys.mapper.vi_min_kfs = VI_MIN_KFS
     poses = []
@@ -781,7 +1017,7 @@ def vi_phase(System, settings, sensor, SyntheticVIStream, kernels, card):
 
     # The windowed drive, noting for each init attempt whether it ran inside
     # a window's replay and how many windows were in flight then.
-    kernels.score_blocks.launches = kernels.score_candidates.launches = 0
+    reset_launches(kernels)
     system = System(settings, sensor, device="cuda")
     system.mapper.vi_min_kfs = VI_MIN_KFS
     replaying, crossings = [], []
@@ -871,6 +1107,7 @@ def vi_phase(System, settings, sensor, SyntheticVIStream, kernels, card):
             and r["frames"] == r["poses"],
             f"{label}: score_candidates once per dispatched P-frame":
                 r["launches"]["score_candidates"] == r["p_frames_dispatched"] > 0,
+            f"{label}: segment_sum launched": r["launches"]["segment_sum"] > 0,
         })
     checks.update({
         "per frame: velocity and gyro bias on the last keyframe": pf["last_kf_velocity_set"] and pf["last_kf_bias_g_set"],
@@ -1007,6 +1244,7 @@ def atlas_phase(System, settings, monocular, system, stream, card):
 
     from movslam_tpu_torch.core import checkpoint, local_mapping, map_merge
     from movslam_tpu_torch.multistream_eval import scale_aligned_ate
+    from movslam_tpu_torch.ops import kernels
 
     def synced(fn):
         torch.cuda.synchronize()
@@ -1029,6 +1267,7 @@ def atlas_phase(System, settings, monocular, system, stream, card):
 
     out, checks = {}, {}
     m = system.atlas.current
+    reset_launches(kernels)
     with tempfile.TemporaryDirectory() as tmp:
         # (a) the checkpoint round trip
         path = os.path.join(tmp, "phase3.atlas")
@@ -1115,6 +1354,8 @@ def atlas_phase(System, settings, monocular, system, stream, card):
                 "kf_bucket": K, "schur_dim": 6 * K})
     checks["top-bucket map at the caps"] = (len(tm.keyframes), tm.n_mappoints(), n_obs) == (
         GBA_TOP_KF, GBA_TOP_MP, GBA_TOP_KF * GBA_TOP_PER_KF)
+    out["launches"] = kernel_launches(kernels)
+    checks["segment_sum launched (pose graph, global BA)"] = out["launches"]["segment_sum"] > 0
     out["global_ba_top_bucket"] = top
 
     c, mg, g, tp = out["checkpoint"], out["merge"], out["global_ba_drive_map"], top
@@ -1210,14 +1451,13 @@ def ingest_phase(System, settings, monocular, SyntheticStream, kernels, card):
                 return res
 
             system.track_monocular_batch = batch
-            kernels.score_candidates.launches = kernels.score_blocks.launches = 0
+            reset_launches(kernels)
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             n, _ = cli.mono_drive(system, path)
             torch.cuda.synchronize()
             drive_ms = 1e3 * (time.perf_counter() - t0) / max(n, 1)
-            launches = {"score_candidates": kernels.score_candidates.launches,
-                        "score_blocks": kernels.score_blocks.launches}
+            launches = kernel_launches(kernels)
             _, _, busy = launch_counts(prof["p"], 1)
             system.shutdown()
             torch.cuda.synchronize()
@@ -1254,28 +1494,42 @@ def ingest_phase(System, settings, monocular, SyntheticStream, kernels, card):
                     launches["score_candidates"] == dispatched > 0,
             })
 
-        # synthetic://n_frames=48 through the same drive function and _finish
+        # synthetic://n_frames=48 through the same drive function and _finish,
+        # with the CLI's --viewer (the System is built from settings in code:
+        # no pyyaml on the card host)
+        url = "synthetic://n_frames=48"
         os.chdir(tmp)
         try:
-            system = System(settings, monocular, device="cuda")
-            kernels.score_candidates.launches = kernels.score_blocks.launches = 0
-            n, wall = cli.mono_drive(system, "synthetic://n_frames=48")
+            system = cli._system(["mono", settings, url, "--viewer", "frames"], monocular)
+            reset_launches(kernels)
+            n, wall = cli.mono_drive(system, url)
             cli._finish(system, n, wall)
-            cli_launches = {"score_candidates": kernels.score_candidates.launches,
-                            "score_blocks": kernels.score_blocks.launches}
+            cli_launches = kernel_launches(kernels)
             fields = open("results.txt").read().strip().split(",")
             kitti = np.loadtxt("TrajectoryKITTIKeyFrame.txt", ndmin=2)
             euroc = np.loadtxt("TrajectoryEUROC.txt", ndmin=2)
+            pngs = len([f for f in os.listdir("frames") if f.endswith(".png")]) if os.path.isdir("frames") else 0
         finally:
             os.chdir(cwd)
+    try:
+        import cv2  # noqa: F401
+        has_cv2 = True
+    except ImportError:
+        has_cv2 = False
     out["cli_synthetic"] = {"results": fields, "kitti_rows": len(kitti), "euroc_rows": len(euroc),
-                            "ms_per_frame": 1e3 * wall / max(n, 1), "launches": cli_launches}
+                            "ms_per_frame": 1e3 * wall / max(n, 1), "launches": cli_launches,
+                            "viewer": {"cv2": has_cv2, "frames_seen": system.viewer.count, "pngs": pngs}}
     print(f"ingest: cli synthetic://n_frames=48: results.txt {','.join(fields)}, {len(kitti)} keyframe rows, "
           f"{len(euroc)} frame rows, {1e3 * wall / max(n, 1):.2f} ms/frame, score_candidates launches "
           f"{cli_launches['score_candidates']} on {card}", flush=True)
+    print(f"ingest: --viewer: cv2 {'found' if has_cv2 else 'not found'}, the viewer saw "
+          f"{system.viewer.count} frames and wrote {pngs} PNGs", flush=True)
+    checks["cli synthetic: the viewer saw every frame, a PNG each where cv2 is found"] = (
+        system.viewer.count == 48 and pngs == (48 if has_cv2 else 0))
     checks["cli synthetic: results.txt 48 frames, 0 lost"] = (len(fields) == 3 and int(fields[0]) == 48
                                                               and int(fields[1]) == 0)
     checks["cli synthetic: score_candidates launched"] = cli_launches["score_candidates"] > 0
+    checks["cli synthetic: segment_sum launched"] = cli_launches["segment_sum"] > 0
     checks["cli synthetic: trajectory files"] = kitti.shape[1] == 13 and euroc.shape[1] == 8 and len(euroc) >= 40
     bad = [name for name, ok in checks.items() if not ok]
     if bad:
@@ -1308,11 +1562,10 @@ def parallel_phase(System, settings, monocular, SyntheticStream, kernels, card, 
         streams = [SyntheticStream(n_points=400, seed=100 + s) for s in range(MS_STREAMS)]
         args = [torch.as_tensor(a, device="cuda") for a in frontend_inputs(streams, cap=MS_TRACKS)]
         prop = make_multistream_propagate("cuda", group=group)
-        kernels.score_candidates.launches = kernels.score_blocks.launches = 0
+        reset_launches(kernels)
         got = prop(*args, THR)
         torch.cuda.synchronize()
-        launches = {"score_candidates": kernels.score_candidates.launches,
-                    "score_blocks": kernels.score_blocks.launches}
+        launches = kernel_launches(kernels)
 
         def singles():
             return [propagate_mv_tracks(*[a[s] for a in args], n_kps_capacity=args[9].shape[1], threshold=THR)
@@ -1336,6 +1589,7 @@ def parallel_phase(System, settings, monocular, SyntheticStream, kernels, card, 
         # mono BA leaves the scale free, so poses and points are compared
         # without it, and the cost as tests/test_parallel.py compares it.
         m, cam = system.atlas.current, system.mapper.camera
+        reset_launches(kernels)
         (w_kfs, n_anchor), = local_mapping.gba_windows(m)
         ordered, prob = local_mapping.gba_problem(m, w_kfs, n_anchor)
         sh = gba._shard_problem(prob, 1, prob["obp"].shape[1])
@@ -1345,11 +1599,16 @@ def parallel_phase(System, settings, monocular, SyntheticStream, kernels, card, 
             T(kf[:, 0:9].reshape(-1, 3, 3)), T(kf[:, 9:12]), T(kf[:, 12] > 0), T(kf[:, 13] > 0),
             T(sh["mp_pos"]), T(sh["mp_valid"]), T(sh["obs_kf"]), T(sh["obs_mp"]), T(sh["obs_uv"]),
             T(sh["obs_valid"]), T(sh["obp"]), cam.fx, cam.fy, cam.cx, cam.cy)
-        ref = ba_solve(T(kf[:, 0:9].reshape(-1, 3, 3)), T(kf[:, 9:12]), T(kf[:, 12] > 0), T(kf[:, 13] > 0),
-                       T(mp[:, 0:3]), T(mp[:, 3] > 0), T(ob[:, 0].astype(np.int64)), T(ob[:, 1].astype(np.int64)),
-                       T(ob[:, 2:4]), T(ob[:, 5] > 0), T(prob["obp"].astype(np.int64)),
-                       cam.fx, cam.fy, cam.cx, cam.cy, iters=PAR_ITERS)
+        ref, ref2 = (ba_solve(T(kf[:, 0:9].reshape(-1, 3, 3)), T(kf[:, 9:12]), T(kf[:, 12] > 0), T(kf[:, 13] > 0),
+                              T(mp[:, 0:3]), T(mp[:, 3] > 0), T(ob[:, 0].astype(np.int64)),
+                              T(ob[:, 1].astype(np.int64)), T(ob[:, 2:4]), T(ob[:, 5] > 0),
+                              T(prob["obp"].astype(np.int64)), cam.fx, cam.fy, cam.cx, cam.cy, iters=PAR_ITERS)
+                     for _ in range(2))
         torch.cuda.synchronize()
+        # The card's sums are ordered (ops/kernels.segment_sum): two solves of
+        # one problem give the same bits, and so may the one-rank sharded BA.
+        repeat_equal = all(torch.equal(ref[k], ref2[k]) for k in ref)
+        sharded_equal = all(torch.equal(a, ref[k]) for a, k in ((R, "kf_R"), (t, "kf_t"), (X, "mp_pos")))
         kv, pv = kf[:, 13] > 0, mp[:, 3] > 0
         seen2 = np.bincount(ob[ob[:, 5] > 0, 1].astype(np.int64), minlength=len(mp))[pv] >= 2
         k0 = int(np.flatnonzero(kv & (kf[:, 12] > 0))[0])  # the fixed keyframe
@@ -1366,11 +1625,14 @@ def parallel_phase(System, settings, monocular, SyntheticStream, kernels, card, 
                              "iters": PAR_ITERS, "max_point_diff": dX, "max_point_diff_scale_removed": dX_s,
                              "max_point_diff_scale_removed_seen_twice": dX_s2, "points_seen_twice": int(seen2.sum()),
                              "trial_cost_first": float(costs[0]), "trial_cost_best": best,
-                             "ba_solve_cost": ref_cost}
+                             "ba_solve_cost": ref_cost, "ba_solve_twice_bit_equal": repeat_equal,
+                             "bit_equal_to_ba_solve": sharded_equal}
         print(f"parallel: sharded BA (1 NCCL rank) vs ba_solve on phase 3's map (K={kf.shape[0]}, "
               f"P={mp.shape[0]}), {PAR_ITERS} iterations: scale {scale:.6f}, then max |t| diff {dt:.3e}; R "
               f"{dR:.3e}; points {dX:.3e} ({dX_s:.3e} without the scale, {dX_s2:.3e} over the {seen2.sum()} "
-              f"seen twice or more); best trial cost {best:.4f} vs {ref_cost:.4f} on {card}", flush=True)
+              f"seen twice or more); best trial cost {best:.4f} vs {ref_cost:.4f}; bit-equal to ba_solve "
+              f"{sharded_equal}; two ba_solve calls bit-equal {repeat_equal} on {card}", flush=True)
+        checks["ba_solve: two calls on one problem bit-equal"] = repeat_equal
         checks["sharded BA: R, t within 5e-3, points seen twice within 5e-2 without the scale"] = (
             dR < 5e-3 and dt < 5e-3 and dX_s2 < 5e-2)
         checks["sharded BA: cost <= 1.1x ba_solve's + 1e-3"] = best <= 1.1 * ref_cost + 1e-3
@@ -1420,6 +1682,8 @@ def parallel_phase(System, settings, monocular, SyntheticStream, kernels, card, 
         checks["gba mesh: pruning differs on <= 1% of points"] = differ <= 0.01 * len(ob)
         checks["gba mesh: R, t within 5e-3, points seen twice within 5e-2 without the scale"] = (
             gdt < 5e-3 and gdR < 5e-3 and gdX2 < 5e-2)
+        out["launches_ba"] = kernel_launches(kernels)  # (b) and (c)
+        checks["sharded and mesh BA: segment_sum launched"] = out["launches_ba"]["segment_sum"] > 0
     finally:
         dist.destroy_process_group()
     bad = [name for name, ok in checks.items() if not ok]
@@ -1475,7 +1739,8 @@ def main():
     # --- 1. build ---------------------------------------------------------
     t0 = time.perf_counter()
     kernels.build(verbose=True)
-    print(f"build: score_blocks.cu compiled and loaded in {time.perf_counter() - t0:.1f} s", flush=True)
+    print(f"build: score_blocks.cu and segment_sum.cu compiled (in parallel) and loaded in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
 
     # --- 2. kernels against their plain versions, and their times ---------
     rng = np.random.default_rng(0)
@@ -1578,6 +1843,7 @@ def main():
               f"profiler {us['profiler_ms']:.3f} us/launch, wrapper {us['wrapper_ms']:.2f} us/call, "
               f"plain {us['plain_ms']:.2f} us/call (device {us['plain_device_ms']:.2f} us), "
               f"bound {us['bound_ms']:.4f} us ({t['bound_by']}, {nbytes} B) on {card}", flush=True)
+    seg_err, seg_times = segment_sum_phase(kernels, rng, dev, card)
 
     phase_done("kernels")
 
@@ -1587,10 +1853,11 @@ def main():
     stream = SyntheticStream(n_points=400, seed=11)
     frames = [stream.frame(k) for k in range(N_FRAMES)]  # rendering is set-up
     n_pframes = sum(1 for k, f in enumerate(frames) if k > 0 and f.ft == FrameType.P_FRAME)
-    kernels.score_blocks.launches = kernels.score_candidates.launches = 0
-    system, est, _, _ = drive(System, s, frames, MONOCULAR)
-    launches = {"score_candidates": kernels.score_candidates.launches,
-                "score_blocks": kernels.score_blocks.launches}
+    reset_launches(kernels)
+    poses3 = []
+    with recorded_wires() as wires3:
+        system, est, _, _ = drive(System, s, frames, MONOCULAR, poses=poses3)
+    launches = kernel_launches(kernels)
     system.shutdown()
     torch.cuda.synchronize()
 
@@ -1617,34 +1884,66 @@ def main():
         f"live ATE < {LIVE_ATE_MAX}": ate_live < LIVE_ATE_MAX,
         f"post-hoc ATE < {POSTHOC_ATE_MAX}": ate_post < POSTHOC_ATE_MAX,
         "score_candidates on every P-frame": launches["score_candidates"] == n_pframes,
+        "segment_sum launched": launches["segment_sum"] > 0,
     }
     bad = [name for name, ok in checks.items() if not ok]
     if bad:
         fail(f"drive gates failed: {bad}")
 
+    # The same drive again with the same seed. The card's sums are ordered
+    # (ops/kernels.segment_sum), so every dispatched program's wire and
+    # every pose must come out bit-equal, and with them the post-hoc ATE.
+    # Frames 16-19 run under the profiler: phase 4's launches per frame of
+    # the fused scoring come from this drive.
+    reset_launches(kernels)
+    poses_again = []
+    with recorded_wires() as wires_again:
+        again_sys, _, again_prof, again_wall = drive(System, s, frames, MONOCULAR, PROFILED, poses=poses_again)
+    again_launches = kernel_launches(kernels)
+    again_sys.shutdown()
+    torch.cuda.synchronize()
+    again = {"wires": digests(wires_again), "poses": pose_digests(poses_again),
+             "trajectory": trajectory_digest(again_sys)}
+    first = {"wires": digests(wires3), "poses": pose_digests(poses3), "trajectory": trajectory_digest(system)}
+    repro = {"frames": N_FRAMES, "dispatches": [len(first["wires"]), len(again["wires"])],
+             "first_wire_difference": first_difference(first["wires"], again["wires"]),
+             "first_pose_difference": first_difference(first["poses"], again["poses"]),
+             "trajectory_equal": first["trajectory"] == again["trajectory"], "ate_post": ate_post}
+    print(f"repro: phase 3's drive again with the same seed: {repro['dispatches'][1]} programs dispatched "
+          f"({repro['dispatches'][0]} before), first differing wire {repro['first_wire_difference']}, first "
+          f"differing pose {repro['first_pose_difference']}, trajectory bit-equal {repro['trajectory_equal']}; "
+          f"post-hoc ATE {ate_post:.4f} m on {card}", flush=True)
+    if repro["first_wire_difference"] is not None or repro["first_pose_difference"] is not None \
+            or not repro["trajectory_equal"]:
+        fail(f"reproducibility gate failed: {repro}")
+
     phase_done("drive")
 
     # --- 4. launches per frame, fused scoring vs the unfused composition ------
+    # The fused scoring's frames were profiled in phase 3's repeat; the
+    # unfused composition drives the first 20 frames again.
     unfused = functools.partial(kernels.score_candidates_ref, block_scorer=kernels.score_blocks)
-    per_frame = {}
     fused = propagate.score_candidates
-    for label, scorer in (("score_candidates", fused), ("unfused", unfused)):
-        propagate.score_candidates = scorer
-        kernels.score_blocks.launches = kernels.score_candidates.launches = 0
-        try:
-            psys, _, prof, wall = drive(System, s, frames[:L_FRAMES], MONOCULAR, PROFILED)
-        finally:
-            propagate.score_candidates = fused
+    propagate.score_candidates = unfused
+    reset_launches(kernels)
+    try:
+        unfused_run = drive(System, s, frames[:L_FRAMES], MONOCULAR, PROFILED)
+    finally:
+        propagate.score_candidates = fused
+    unfused_run[0].shutdown()
+    torch.cuda.synchronize()
+    per_frame = {}
+    for label, (psys, prof, wall, counts) in (
+            ("score_candidates", (again_sys, again_prof, again_wall, again_launches)),
+            ("unfused", (unfused_run[0], unfused_run[2], unfused_run[3], kernel_launches(kernels)))):
         host, devk, busy = launch_counts(prof, len(PROFILED))
         per_frame[label] = {
             "host_launches": host, "device_kernels": devk, "busy_ms": busy,
             "wall_ms": wall * 1e3 / len(PROFILED),
             "track_ms_10_15": float(np.mean(psys.track_ms[10:PROFILED[0]])),
-            "score_blocks": kernels.score_blocks.launches,
-            "score_candidates": kernels.score_candidates.launches, "lost": psys.get_total_lost(),
+            "frames": len(psys.track_ms), "score_blocks": counts["score_blocks"],
+            "score_candidates": counts["score_candidates"], "lost": psys.get_total_lost(),
         }
-        psys.shutdown()
-        torch.cuda.synchronize()
         r = per_frame[label]
         print(f"launches: {label} scoring, frames {PROFILED[0]}-{PROFILED[-1]} under the profiler: "
               f"{host:.1f} launch calls/frame, {devk:.1f} device kernels/frame, device busy "
@@ -1693,18 +1992,23 @@ def main():
     phase_done("parallel")
     check_banned()
 
-    src = "movslam_tpu_torch/csrc/score_blocks.cu"
-    replaces = "movslam_tpu/ops/pallas_kernels.py:129"
+    drives = ("per-frame drive (phase 3); launches_windowed: windowed drive (phase 5); "
+              "launches_stereo_*: the stereo drives (phase 6); launches_vi_*: the VI drives (phase 7); "
+              "launches_atlas: the Atlas back end (phase 8: merges, global BA); launches_h264: the real-H.264 "
+              "drive (phase 9; null where libav is absent); launches_cli_synthetic: the CLI's drive on "
+              "synthetic://n_frames=48 (phase 9); launches_multistream: one 8-stream batch (phase 10); "
+              "launches_parallel_ba: the sharded BA, two ba_solve calls and the mesh global BA (phase 10)")
+    seg_main = "local_ba pair_C36"  # the largest sum of phase 3's local BA
+    times["segment_sum"] = dict(seg_times[seg_main], profiler_ms=None, plain_device_ms=None)
     rows = []
-    for name, launched, path in (
-        ("score_candidates", launches["score_candidates"],
-         "per-frame drive (phase 3); launches_windowed: windowed drive (phase 5); "
-         "launches_stereo_*: the stereo drives (phase 6); launches_vi_*: the VI drives (phase 7); "
-         "launches_h264: the real-H.264 drive (phase 9; null where libav is absent); launches_cli_synthetic: "
-         "the CLI's drive on synthetic://n_frames=48 (phase 9); launches_multistream: one 8-stream batch "
-         "(phase 10)"),
-        ("score_blocks", per_frame["unfused"]["score_blocks"],
-         "per-frame drive with unfused scoring (phase 4)"),
+    for name, src, replaces, launched, path in (
+        ("score_candidates", "movslam_tpu_torch/csrc/score_blocks.cu", "movslam_tpu/ops/pallas_kernels.py:129",
+         launches["score_candidates"], drives),
+        ("score_blocks", "movslam_tpu_torch/csrc/score_blocks.cu", "movslam_tpu/ops/pallas_kernels.py:129",
+         per_frame["unfused"]["score_blocks"], "per-frame drive with unfused scoring (phase 4)"),
+        ("segment_sum", "movslam_tpu_torch/csrc/segment_sum.cu",
+         "none (no TPU kernel; stands in for jax.ops.segment_sum, movslam_tpu/ops/ba.py:119)",
+         launches["segment_sum"], drives),
     ):
         t = times[name]
         rows.append({
@@ -1717,17 +2021,23 @@ def main():
             "launches_h264": ingest["launches"][name] if ingest["launches"] is not None else None,
             "launches_cli_synthetic": ingest["cli_synthetic"]["launches"][name],
             "launches_multistream": par["multistream"]["launches"][name],
+            "launches_atlas": atlas["launches"][name],
+            "launches_parallel_ba": par["launches_ba"][name],
             "path": path,
-            "max_abs_err": cand_err if name == "score_candidates" else blocks_err,
+            "max_abs_err": {"score_candidates": cand_err, "score_blocks": blocks_err, "segment_sum": seg_err}[name],
             "ms": t["ms"], "wrapper_ms": t["wrapper_ms"], "profiler_ms": t["profiler_ms"],
             "plain_ms": t["plain_ms"], "plain_device_ms": t["plain_device_ms"],
-            "bound_ms": t["bound_ms"], "bound_by": t["bound_by"], "library_ms": None,
+            "bound_ms": t["bound_ms"], "bound_by": t["bound_by"], "library_ms": t.get("library_ms"),
         })
         if name == "score_candidates":
             rows[-1]["other_shapes"] = {
                 label: {k: times[f"score_candidates {label}"][k]
                         for k in ("ms", "wrapper_ms", "plain_ms", "bound_ms", "bound_by", "bytes")}
                 for label in ("S8_N2048_M8192", "N2048_M8192")}
+        if name == "segment_sum":
+            rows[-1]["shape"] = seg_main
+            rows[-1]["other_shapes"] = {label: v for label, v in seg_times.items() if label != seg_main}
+    print(json.dumps({"reproducibility": repro, "card": card}), flush=True)
     print(json.dumps({"launches_per_frame": per_frame, "card": card}), flush=True)
     print(json.dumps({"windowed_drive": win, "card": card}), flush=True)
     print(json.dumps({"stereo_drive": ste, "card": card}), flush=True)

@@ -7,8 +7,8 @@ TrajectoryKITTIKeyFrame.txt, TrajectoryEUROC.txt and results.txt
 (`imageCnt,totalLost,avg_ms`, mono_video_tartan.cc:105-115) out, in the
 working directory.
 
-    python -m movslam_tpu_torch.cli mono <settings.yaml> <stream> [--realtime] [--imu] [--cpu]
-    python -m movslam_tpu_torch.cli stereo <settings.yaml> <stream> [--realtime] [--cpu]
+    python -m movslam_tpu_torch.cli mono <settings.yaml> <stream> [--realtime] [--imu] [--viewer DIR] [--cpu]
+    python -m movslam_tpu_torch.cli stereo <settings.yaml> <stream> [--realtime] [--viewer DIR] [--cpu]
 
 Stream forms:
   synthetic://n_frames=N,seed=S[,n_points=P]        ground-truth fake decoder
@@ -25,6 +25,11 @@ System, then `_finish`, as `mono_main` does.
 (mono_video_tartan.cc:73-93); without it the drive is the throughput one:
 W-frame batches with windows kept in flight across calls (flush=False) and
 one final flush=True.
+
+--viewer DIR streams annotated frame PNGs (frame_NNNNNN.png: green trails
+= track history, green boxes = map-point inliers) into DIR through the
+headless viewer (viz/viewer.py). It draws with cv2; a host without cv2
+writes none and says so.
 """
 from __future__ import annotations
 
@@ -34,8 +39,8 @@ import time
 from .config.settings import IMU_MONOCULAR, MONOCULAR, STEREO
 
 USAGE = {
-    "mono": "<settings.yaml> <stream> [--realtime] [--imu] [--cpu]",
-    "stereo": "<settings.yaml> <stream> [--realtime] [--cpu]",
+    "mono": "<settings.yaml> <stream> [--realtime] [--imu] [--viewer DIR] [--cpu]",
+    "stereo": "<settings.yaml> <stream> [--realtime] [--viewer DIR] [--cpu]",
 }
 SETTINGS_NOTE = "(<settings.yaml> is read with pyyaml; without it, build Settings in code and call mono_drive)"
 
@@ -178,20 +183,27 @@ def _device(argv):
     return "cpu" if "--cpu" in argv else "cuda"
 
 
+def _system(argv, sensor):
+    """The System of `argv` ([program, settings.yaml, stream, flags...]),
+    with the viewer writing to --viewer's directory when one is given."""
+    from .core.system import System
+
+    viewer_dir = argv[argv.index("--viewer") + 1] if "--viewer" in argv else None
+    slam = System(argv[1], sensor, device=_device(argv), use_viewer=viewer_dir is not None)
+    if viewer_dir is not None:
+        slam.viewer.out_dir = viewer_dir
+    return slam
+
+
 def mono_main(argv=None):
     """`argv` as sys.argv: [program, settings.yaml, stream, flags...]."""
     argv = list(sys.argv if argv is None else argv)
     if len(argv) < 3:
         print(f"Usage: {argv[0] if argv else 'mono'} {USAGE['mono']}\n{SETTINGS_NOTE}")
         return 1
-    if "--viewer" in argv:
-        raise SystemExit("--viewer: the headless viewer is not ported to movslam_tpu_torch yet "
-                         "(ROADMAP Queue 1); run without it")
-    from .core.system import System
-
-    settings_path, url = argv[1], argv[2]
+    url = argv[2]
     use_imu = "--imu" in argv or url.startswith("synthetic-vi://")
-    slam = System(settings_path, IMU_MONOCULAR if use_imu else MONOCULAR, device=_device(argv))
+    slam = _system(argv, IMU_MONOCULAR if use_imu else MONOCULAR)
     n, wall = mono_drive(slam, url, realtime="--realtime" in argv)
     return _finish(slam, n, wall)
 
@@ -202,9 +214,7 @@ def stereo_main(argv=None):
     if len(argv) < 3:
         print(f"Usage: {argv[0] if argv else 'stereo'} {USAGE['stereo']}\n{SETTINGS_NOTE}")
         return 1
-    from .core.system import System
-
-    slam = System(argv[1], STEREO, device=_device(argv))
+    slam = _system(argv, STEREO)
     n, wall = stereo_drive(slam, argv[2], realtime="--realtime" in argv)
     return _finish(slam, n, wall)
 

@@ -66,7 +66,7 @@ class System:
     STEREO = STEREO
     IMU_MONOCULAR = IMU_MONOCULAR
 
-    def __init__(self, settings, sensor=MONOCULAR, device="cuda", async_mapping=False):
+    def __init__(self, settings, sensor=MONOCULAR, device="cuda", async_mapping=False, use_viewer=False):
         if sensor not in (MONOCULAR, STEREO, IMU_MONOCULAR):
             raise ValueError(f"unsupported sensor {sensor!r}")
         self.device = resolve_device(device)
@@ -130,6 +130,14 @@ class System:
         self.async_mapping = async_mapping
         if async_mapping:
             self.mapper.start_thread()
+
+        # The headless viewer (viz/viewer.py): set viewer.out_dir to stream
+        # annotated PNGs.
+        self.viewer = None
+        if use_viewer:
+            from ..viz.viewer import Viewer
+
+            self.viewer = Viewer(self)
 
         if self.settings.load_atlas:
             try:
@@ -274,7 +282,7 @@ class System:
                 self.counts["per_frame_p"] += 1
         if not fused_done:
             self._track_per_stage(timestamp, smv, img_dev)
-        return self._frame_done(t0)
+        return self._frame_done(t0, smv)
 
     def _track_per_stage(self, timestamp, smv, img_dev, smv_right=None):
         """The per-stage path: extractor (with the LK recovery inputs after a
@@ -296,11 +304,14 @@ class System:
         self.mapper.tick()
         tr.grab_frame(frame)
 
-    def _frame_done(self, t0):
-        """Count the frame and return its pose, (R, t) or None."""
+    def _frame_done(self, t0, smv):
+        """Count the frame, show it to the viewer and return its pose, (R, t)
+        or None."""
         self.image_count += 1
         self.track_ms.append(1e3 * (time.perf_counter() - t0))
         cur = self.tracking.current
+        if self.viewer is not None and cur is not None:
+            self.viewer.update(cur, smv)
         return (cur.R, cur.t) if cur is not None and cur.pose_set else None
 
     # --- windowed drive (W frames per window program) ----------------------
@@ -756,6 +767,8 @@ class System:
             consumed = k + 1
             cur = tr.current
             poses.append((cur.R, cur.t) if cur is not None and cur.pose_set else None)
+            if self.viewer is not None and cur is not None:
+                self.viewer.update(cur, smv)
             if tr.state != State.OK:
                 break
             n_kfs = self.atlas.current.n_keyframes()
@@ -846,7 +859,7 @@ class System:
             self._snapshot = None
             self._reset_requested = False
         self._track_per_stage(timestamp, smv, torch.as_tensor(smv.im_gray, device=self.device), smv_right)
-        return self._frame_done(t0)
+        return self._frame_done(t0, smv)
 
     def global_bundle_adjustment(self, iters=20, mesh=None):
         """Full-map BA over the active map (System::GlobalBundleAdjustment,

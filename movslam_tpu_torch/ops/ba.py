@@ -4,14 +4,21 @@ Port of movslam_tpu/ops/ba.py (g2o LM + BlockSolver_6_3
 replacement, Optimizer.cc:461-841): Huber (delta^2 = 5 px^2), 10 LM
 iterations with branchless accept/reject, landmark blocks marginalized with
 batched 3x3 inverses and a dense 6K x 6K reduced camera system solved by
-Cholesky. Segment sums are `index_add_`; the Schur coupling scatters the
-per-point (a, b) blocks directly instead of the reference's one-hot einsum.
+Cholesky. The Schur coupling scatters the per-point (a, b) blocks directly
+instead of the reference's one-hot einsum.
+
+Segment sums: `index_add_` on the CPU; on the card the ordered
+kernels.segment_sum, whose order is the CPU's, so a solve gives the same
+bits on every run (`index_add_` there is float atomics). The plans that fix
+that order depend only on the problem's indices: ba_solve builds them once
+(segment_plans) and every LM iteration reuses them.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
+from .kernels import segment_plan, segment_sum
 from .lie import hat, se3_compose, se3_exp
 from .linalg import inv3x3, solve_psd
 
@@ -19,9 +26,48 @@ HUBER2 = 5.0  # chi2 kernel threshold (g2o delta^2)
 LM_ITERS = 10
 
 
-def _segment_sum(x, idx, n):
-    out = torch.zeros((n,) + x.shape[1:], dtype=x.dtype, device=x.device)
-    return out.index_add_(0, idx, x)
+def _ordered(x):
+    """Whether x's sums go through the ordered segment sum and its plans
+    (on the card) rather than `index_add_` (on the CPU)."""
+    return x.device.type != "cpu"
+
+
+def _segment_sum(x, idx, n, plan=None):
+    """Sum the rows of x into n segments by idx: `index_add_` on the CPU;
+    on the card the ordered kernel over `plan` (segment_plan(idx, n) when
+    None)."""
+    if not _ordered(x):
+        out = torch.zeros((n,) + x.shape[1:], dtype=x.dtype, device=x.device)
+        return out.index_add_(0, idx, x)
+    return segment_sum(x, plan if plan is not None else segment_plan(idx, n))
+
+
+def _listed_obs(obs_by_point, O):
+    """Each point's listed observations, clamped to a valid row, and which
+    of them are real (index O pads)."""
+    return obs_by_point.clamp(max=O - 1).to(torch.int64), obs_by_point < O
+
+
+def _pair_index(obs_kf, ob, K):
+    """Block (a, b) of S for every pair of each point's listed observations."""
+    kfp = obs_kf[ob]  # (P, M)
+    return (kfp[:, :, None] * K + kfp[:, None, :]).reshape(-1)
+
+
+def segment_plans(obs_kf, obs_mp, obs_valid, obs_by_point, K, P, O):
+    """The card's summation plans of one BA problem, fixed across LM
+    iterations: by keyframe ("kf"), by point ("mp") and the Schur pair
+    scatter ("pair"). Rows that carry zero blocks are left out: invalid
+    (padding) observations, and pairs with a padding slot, which would
+    otherwise make one long serial run in one segment. None on the CPU,
+    where the sums are `index_add_`."""
+    if not _ordered(obs_kf):
+        return None
+    ob, pad = _listed_obs(obs_by_point, O)
+    keep = obs_valid.to(torch.bool)
+    return {"kf": segment_plan(obs_kf, K, keep), "mp": segment_plan(obs_mp, P, keep),
+            "pair": segment_plan(_pair_index(obs_kf, ob, K), K * K,
+                                 (pad[:, :, None] & pad[:, None, :]).reshape(-1))}
 
 
 def _residual_jacobians(kf_R, kf_t, mp_pos, obs_kf, obs_mp, obs_uv, obs_w, fx, fy, cx, cy,
@@ -70,28 +116,30 @@ def _total_cost(chi2, w_valid):
     return (rho * w_valid).sum()
 
 
-def schur_reduce(W, g_p, g_l, Hpp, Hll, obs_kf, obs_mp, obs_by_point, lam, K, P, O, lam_pose=None):
+def schur_reduce(W, g_p, g_l, Hpp, Hll, obs_kf, obs_mp, obs_by_point, lam, K, P, O, lam_pose=None,
+                 plans=None):
     """Marginalize the landmark blocks. Returns (S (6K, 6K) including
     Hpp + lam_pose I, rhs (K, 6), Hll_inv (P, 3, 3)); lam_pose defaults to
     lam (the point-sharded BA passes 0 and damps the summed system once).
     Only the observations listed in obs_by_point (at most MOPP per point)
-    couple keyframe pairs, exactly as in the reference."""
+    couple keyframe pairs, exactly as in the reference. plans:
+    segment_plans of the problem, or None."""
+    plans = plans or {}
     eye3 = torch.eye(3, dtype=W.dtype, device=W.device)
     eye6 = torch.eye(6, dtype=W.dtype, device=W.device)
     Hll_inv = inv3x3(Hll + lam * eye3 + 1e-8 * eye3, eps=1e-30)
     Hinv_gl = (Hll_inv @ g_l[:, :, None])[..., 0]
-    rhs = g_p - _segment_sum((W @ Hinv_gl[obs_mp][:, :, None])[..., 0], obs_kf, K)
+    rhs = g_p - _segment_sum((W @ Hinv_gl[obs_mp][:, :, None])[..., 0], obs_kf, K, plans.get("kf"))
 
     # Pair blocks W_a Hinv_p W_b^T of every point's listed observations,
     # scattered into the (a, b) block of S; index O is the padding slot.
-    pad = obs_by_point < O
-    ob = obs_by_point.clamp(max=O - 1).to(torch.int64)
+    ob, pad = _listed_obs(obs_by_point, O)
     Wp = W[ob] * pad[..., None, None]  # (P, M, 6, 3)
-    kfp = obs_kf[ob]  # (P, M)
     Yp = Wp @ Hll_inv[:, None]  # (P, M, 6, 3)
-    blocks = torch.einsum("pmik,pnjk->pmnij", Yp, Wp)  # (P, M, M, 6, 6)
-    ab = (kfp[:, :, None] * K + kfp[:, None, :]).reshape(-1)
-    S = -_segment_sum(blocks.reshape(-1, 6, 6), ab, K * K)
+    blocks = torch.einsum("pmik,pnjk->pmnij", Yp, Wp).reshape(-1, 6, 6)  # (P*M*M, 6, 6)
+    pair = plans.get("pair")
+    S = -(segment_sum(blocks, pair) if pair is not None else
+          _segment_sum(blocks, _pair_index(obs_kf, ob, K), K * K))
     diag = torch.arange(K, device=W.device) * (K + 1)
     S[diag] += Hpp + (lam if lam_pose is None else lam_pose) * eye6
     S = S.reshape(K, K, 6, 6).permute(0, 2, 1, 3).reshape(K * 6, K * 6)
@@ -99,27 +147,30 @@ def schur_reduce(W, g_p, g_l, Hpp, Hll, obs_kf, obs_mp, obs_by_point, lam, K, P,
 
 
 def visual_linearize(R, t, X, obs_kf, obs_mp, obs_uv, obs_w, free_obs, fx, fy, cx, cy, obs_ur, bf,
-                     K, P):
+                     K, P, plans=None):
     """The reprojection edges' normal-equation blocks at (R, t, X): W (O, 6, 3),
     gradients g_p (K, 6) and g_l (P, 3), Hpp (K, 6, 6), Hll (P, 3, 3), the
     robust cost, chi2 and depth. free_obs (O, 1, 1) zeroes the pose Jacobian
-    of observations in fixed keyframes."""
+    of observations in fixed keyframes. plans: segment_plans, or None."""
+    plans = plans or {}
     r, Jp, Jl, w, chi2, z = _residual_jacobians(R, t, X, obs_kf, obs_mp, obs_uv, obs_w, fx, fy, cx, cy, obs_ur, bf)
     Jp = Jp * free_obs
     Jpw = Jp * w[:, None, None]
     Jlw = Jl * w[:, None, None]
-    g_p = -_segment_sum((Jpw.transpose(1, 2) @ r[:, :, None])[..., 0], obs_kf, K)
-    g_l = -_segment_sum((Jlw.transpose(1, 2) @ r[:, :, None])[..., 0], obs_mp, P)
-    Hpp = _segment_sum(Jpw.transpose(1, 2) @ Jp, obs_kf, K)
-    Hll = _segment_sum(Jlw.transpose(1, 2) @ Jl, obs_mp, P)
+    pk, pm = plans.get("kf"), plans.get("mp")
+    g_p = -_segment_sum((Jpw.transpose(1, 2) @ r[:, :, None])[..., 0], obs_kf, K, pk)
+    g_l = -_segment_sum((Jlw.transpose(1, 2) @ r[:, :, None])[..., 0], obs_mp, P, pm)
+    Hpp = _segment_sum(Jpw.transpose(1, 2) @ Jp, obs_kf, K, pk)
+    Hll = _segment_sum(Jlw.transpose(1, 2) @ Jl, obs_mp, P, pm)
     W = Jpw.transpose(1, 2) @ Jl  # (O, 6, 3)
     return {"W": W, "g_p": g_p, "g_l": g_l, "Hpp": Hpp, "Hll": Hll,
             "cost": _total_cost(chi2, obs_w), "chi2": chi2, "z": z}
 
 
-def backsub_landmarks(dxi, W, Hll_inv, g_l, obs_kf, obs_mp, P, mp_valid):
+def backsub_landmarks(dxi, W, Hll_inv, g_l, obs_kf, obs_mp, P, mp_valid, plans=None):
     """Back-substitute the landmark updates: dX = Hll_inv (g_l - sum W^T dxi)."""
-    Wt_dxi = _segment_sum((W.transpose(1, 2) @ dxi[obs_kf][:, :, None])[..., 0], obs_mp, P)
+    Wt_dxi = _segment_sum((W.transpose(1, 2) @ dxi[obs_kf][:, :, None])[..., 0], obs_mp, P,
+                          (plans or {}).get("mp"))
     dX = (Hll_inv @ (g_l - Wt_dxi)[:, :, None])[..., 0]
     return torch.where(torch.isfinite(dX), dX, torch.zeros_like(dX)) * mp_valid[:, None]
 
@@ -141,10 +192,11 @@ def ba_solve(kf_R, kf_t, kf_fixed, kf_valid, mp_pos, mp_valid, obs_kf, obs_mp, o
     free_obs = free[obs_kf].to(mp_pos.dtype)[:, None, None]
     m = free.to(mp_pos.dtype).repeat_interleave(6)
     eye = torch.eye(K * 6, dtype=mp_pos.dtype, device=mp_pos.device)
+    plans = segment_plans(obs_kf, obs_mp, obs_valid, obs_by_point, K, P, O)
 
     def linearize(R, t, X):
         return visual_linearize(R, t, X, obs_kf, obs_mp, obs_uv, obs_w, free_obs, fx, fy, cx, cy,
-                                obs_ur, bf, K, P)
+                                obs_ur, bf, K, P, plans)
 
     R, t, X = kf_R, kf_t, mp_pos
     lam = torch.tensor(1e-4, dtype=mp_pos.dtype, device=mp_pos.device)
@@ -152,12 +204,12 @@ def ba_solve(kf_R, kf_t, kf_fixed, kf_valid, mp_pos, mp_valid, obs_kf, obs_mp, o
     for _ in range(iters):
         S, rhs, Hll_inv = schur_reduce(
             lin["W"], lin["g_p"], lin["g_l"], lin["Hpp"], lin["Hll"],
-            obs_kf, obs_mp, obs_by_point, lam, K, P, O,
+            obs_kf, obs_mp, obs_by_point, lam, K, P, O, plans=plans,
         )
         S = S * m[:, None] * m[None, :] + torch.diag(1.0 - m)
         dxi = solve_psd(S + 1e-6 * eye, rhs.reshape(-1) * m).reshape(K, 6)
         dxi = torch.where(torch.isfinite(dxi), dxi, torch.zeros_like(dxi))
-        dX = backsub_landmarks(dxi, lin["W"], Hll_inv, lin["g_l"], obs_kf, obs_mp, P, mp_valid)
+        dX = backsub_landmarks(dxi, lin["W"], Hll_inv, lin["g_l"], obs_kf, obs_mp, P, mp_valid, plans)
         dR, dt = se3_exp(dxi)
         R_new, t_new = se3_compose(dR, dt, R, t)
         R_new = torch.where(free[:, None, None], R_new, R)

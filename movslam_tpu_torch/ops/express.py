@@ -119,3 +119,36 @@ def dense_grid_detect(img, threshold):
     tl = centers.to(torch.int32) - half
     passed, desc = detect_and_describe(gather_blocks(img, tl), threshold)
     return centers, passed, desc
+
+
+def save_express_file(path, img, threshold, *, device):
+    """Debug dump (the reference's save_express_file, EXPRESS.h:194-229):
+    a white image with the descriptor bits of every detected block painted
+    black, batched over the dense pixel grid on `device`. Written as a PNG
+    with cv2 (imported here only; a host without it gets path + ".npy").
+    img (H, W) u8 numpy. Returns the (H, W) u8 image."""
+    from .bitdesc import unpack_bits
+
+    img_dev = torch.as_tensor(np.asarray(img), device=device)
+    H, W = img.shape
+    half = BLOCK // 2
+    ys, xs = np.meshgrid(np.arange(half, H - half), np.arange(half, W - half), indexing="ij")
+    centers = np.stack([xs.ravel(), ys.ravel()], -1).astype(np.int32)
+    out = np.full((H, W), 255, np.uint8)
+    # Chunked to bound memory: every center's block described + detected.
+    for i in range(0, len(centers), 8192):
+        c = centers[i : i + 8192]
+        tl = torch.as_tensor(c - half, device=device)
+        passed, desc = detect_and_describe(gather_blocks(img_dev, tl), threshold)
+        passed = passed.cpu().numpy()
+        dbits = unpack_bits(desc).cpu().numpy().reshape(-1, BLOCK, BLOCK)
+        for k in np.flatnonzero(passed):
+            x0, y0 = c[k, 0] - half, c[k, 1] - half
+            out[y0 : y0 + BLOCK, x0 : x0 + BLOCK][dbits[k]] = 0
+    try:
+        import cv2
+
+        cv2.imwrite(path, out)
+    except ImportError:
+        np.save(path + ".npy", out)
+    return out

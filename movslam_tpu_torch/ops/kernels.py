@@ -1,6 +1,6 @@
 """Hand-written CUDA kernels of the port and their plain PyTorch versions.
 
-Both replace the Pallas TPU kernel
+Two replace the Pallas TPU kernel
 movslam_tpu/ops/pallas_kernels.py::score_blocks (see csrc/score_blocks.cu
 for the design):
 
@@ -9,10 +9,17 @@ for the design):
                     (ops/propagate.py): positions, bounds tests, descriptors,
                     distances and the best-of-4 choice in one launch.
 
-The CUDA source is compiled with nvcc at first use into
-movslam_tpu_torch/_build/ (keyed by a hash of the source) as a shared
-library with a plain C interface and bound with ctypes. Nothing is built or
-imported at module import: the CPU tests import this module without nvcc.
+One has no TPU counterpart (csrc/segment_sum.cu):
+
+  segment_sum       the ordered f32 segment sum of the BA and the pose
+                    graph: the order CPU index_add_ takes, the same on
+                    every run, where index_add_ on the card is atomics.
+
+Each CUDA source is compiled with nvcc at first use into
+movslam_tpu_torch/_build/ (keyed by a hash of the source; one nvcc per
+source, started together) as a shared library with a plain C interface
+and bound with ctypes. Nothing is built or imported at module import: the
+CPU tests import this module without nvcc.
 
 On a CPU tensor a wrapper runs its plain version; on a CUDA tensor it
 launches the kernel or raises. There is no fallback. Each wrapper counts its
@@ -27,6 +34,7 @@ import shutil
 import subprocess
 import tempfile
 from pathlib import Path
+from typing import NamedTuple
 
 import torch
 
@@ -44,13 +52,19 @@ NVCC_FLAGS = (
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
-_SIGNATURES = {
-    # img, H, W, tl, prev, thr, B, dist, desc, stream
-    "score_blocks_launch": [_P, _I, _I, _P, _P, _F, _I, _P, _P, _P],
-    # img, H, W, prev_pt, cand, mv_delta, mv_stride, prev_wh, prev_desc, thr, N,
-    # n_per_img, mv_per_img, desc, dist, mv, pt, inb, stream
-    "score_candidates_launch": [_P, _I, _I, _P, _P, _P, _I, _P, _P, _F, _I, _I, _I,
-                                _P, _P, _P, _P, _P, _P],
+_SOURCES = {  # CUDA source -> {C entry point: argtypes}
+    "score_blocks.cu": {
+        # img, H, W, tl, prev, thr, B, dist, desc, stream
+        "score_blocks_launch": [_P, _I, _I, _P, _P, _F, _I, _P, _P, _P],
+        # img, H, W, prev_pt, cand, mv_delta, mv_stride, prev_wh, prev_desc, thr, N,
+        # n_per_img, mv_per_img, desc, dist, mv, pt, inb, stream
+        "score_candidates_launch": [_P, _I, _I, _P, _P, _P, _I, _P, _P, _F, _I, _I, _I,
+                                    _P, _P, _P, _P, _P, _P],
+    },
+    "segment_sum.cu": {
+        # x, C, perm, offsets, n, out, stream
+        "segment_sum_launch": [_P, _I, _P, _P, _I, _P, _P],
+    },
 }
 
 _fns = {}  # C entry point name -> bound ctypes function
@@ -67,36 +81,47 @@ def _find_nvcc():
     return nvcc
 
 
+def _library(src):
+    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    return BUILD_DIR / f"lib{src.stem}_{digest}.so"
+
+
 def build(verbose=False):
-    """Compile csrc/score_blocks.cu (once per source hash) and bind its
-    entry points. Raises with nvcc's output if the build fails."""
+    """Compile every csrc/*.cu of _SOURCES (once per source hash; the nvcc
+    runs in parallel) and bind their entry points. Raises with nvcc's output
+    if a build fails."""
     if _fns:
         return _fns
-    src = CSRC / "score_blocks.cu"
-    digest = hashlib.sha256(
-        src.read_bytes() + " ".join(NVCC_FLAGS).encode()
-    ).hexdigest()[:16]
-    so = BUILD_DIR / f"libscore_blocks_{digest}.so"
-    if not so.exists():
+    jobs = []
+    for name in _SOURCES:
+        so = _library(CSRC / name)
+        if so.exists():
+            continue
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
         os.close(fd)
-        cmd = [_find_nvcc(), *NVCC_FLAGS, "-Xptxas", "-v", "-o", tmp, str(src)]
-        proc = subprocess.run(cmd, capture_output=True, text=True)
+        cmd = [_find_nvcc(), *NVCC_FLAGS, "-Xptxas", "-v", "-o", tmp, str(CSRC / name)]
+        proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        jobs.append((name, so, tmp, proc))
+    failed = []
+    for name, so, tmp, proc in jobs:
+        log = proc.communicate()[0]
         if proc.returncode != 0:
             os.unlink(tmp)
-            raise RuntimeError(
-                f"nvcc failed ({proc.returncode}):\n{proc.stdout}\n{proc.stderr}"
-            )
+            failed.append(f"nvcc {name} failed ({proc.returncode}):\n{log}")
+            continue
         if verbose:
-            print(proc.stdout + proc.stderr, flush=True)
+            print(f"nvcc {name}:\n{log}", flush=True)
         os.replace(tmp, so)
-    lib = ctypes.CDLL(str(so))
-    for name, argtypes in _SIGNATURES.items():
-        fn = getattr(lib, name)
-        fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
-        _fns[name] = fn
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    for name, signatures in _SOURCES.items():
+        lib = ctypes.CDLL(str(_library(CSRC / name)))
+        for entry, argtypes in signatures.items():
+            fn = getattr(lib, entry)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+            _fns[entry] = fn
     return _fns
 
 
@@ -296,3 +321,70 @@ def score_candidates(img, prev_pt, cand, mv_delta, prev_wh, prev_desc, threshold
 
 
 score_candidates.launches = 0
+
+
+class SegmentPlan(NamedTuple):
+    """The summation order of one index vector over n segments: perm lists
+    the kept rows stable-sorted by segment (rows left out sort past
+    offsets[n]) and offsets[s]..offsets[s + 1] is segment s's run of it."""
+
+    perm: torch.Tensor  # (R,) int32
+    offsets: torch.Tensor  # (n + 1,) int32
+    n: int
+
+
+def segment_plan(idx, n, keep=None):
+    """The plan of idx (R,) into n segments, with integer ops only and no
+    host sync: a stable argsort and a searchsorted of the segment starts.
+    Rows where keep (R,) bool is False are left out of every segment."""
+    idx = idx.to(torch.int64)
+    if keep is not None:
+        idx = torch.where(keep, idx, torch.full_like(idx, n))
+    perm = torch.argsort(idx, stable=True)
+    starts = torch.arange(n + 1, dtype=torch.int64, device=idx.device)
+    offsets = torch.searchsorted(idx[perm], starts)
+    return SegmentPlan(perm.to(torch.int32), offsets.to(torch.int32), n)
+
+
+def segment_sum_ref(x, plan):
+    """Plain segment_sum: index_add_ over the plan's rows in the plan's
+    order, which per segment is increasing row order."""
+    counts = (plan.offsets[1:] - plan.offsets[:-1]).to(torch.int64)
+    seg = torch.repeat_interleave(torch.arange(plan.n, device=x.device), counts)
+    rows = plan.perm[: seg.shape[0]].to(torch.int64)
+    out = torch.zeros((plan.n,) + tuple(x.shape[1:]), dtype=x.dtype, device=x.device)
+    return out.index_add_(0, seg, x[rows])
+
+
+def segment_sum(x, plan):
+    """Ordered segment sum: out[s] = sum of x[i] over the plan's rows i of
+    segment s, in increasing i, one sequential f32 sum per element. x (R,
+    ...) f32, contiguous; the trailing dims are summed as C columns.
+
+    CUDA tensors launch csrc/segment_sum.cu (the order CPU index_add_ takes,
+    bit for bit); CPU tensors run segment_sum_ref. Any other device, dtype
+    or layout raises. Returns (plan.n, ...) f32."""
+    if x.dim() < 1 or plan.perm.dim() != 1 or plan.perm.shape[0] != x.shape[0]:
+        raise ValueError(f"x {tuple(x.shape)} does not match a plan over {plan.perm.shape[0]} rows")
+    if plan.perm.dtype != torch.int32 or plan.offsets.dtype != torch.int32 or \
+            tuple(plan.offsets.shape) != (plan.n + 1,):
+        raise TypeError("the plan must be int32 perm (R,) and offsets (n + 1,), as segment_plan makes it")
+    dev = _common_device("segment_sum", x, plan.perm, plan.offsets)
+    if dev.type == "cpu":
+        return segment_sum_ref(x, plan)
+    if x.dtype != torch.float32:
+        raise TypeError(f"segment_sum sums float32 on the card, got {x.dtype}")
+    if not all(t.is_contiguous() for t in (x, plan.perm, plan.offsets)):
+        raise ValueError("segment_sum needs contiguous tensors")
+    C = 1
+    for d in x.shape[1:]:
+        C *= d
+    out = torch.empty((plan.n,) + tuple(x.shape[1:]), dtype=torch.float32, device=dev)
+    if out.numel():
+        _launch("segment_sum_launch", dev, x.data_ptr(), C, plan.perm.data_ptr(),
+                plan.offsets.data_ptr(), plan.n, out.data_ptr())
+        segment_sum.launches += 1
+    return out
+
+
+segment_sum.launches = 0

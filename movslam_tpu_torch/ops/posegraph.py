@@ -2,8 +2,10 @@
 
 Port of movslam_tpu/ops/posegraph.py. Per-edge Jacobians come from
 forward-mode autodiff vmapped over the edges; the normal system is dense
-(6K x 6K), its K x K blocks summed with `index_add_`, and solved by
-Cholesky. Used by core/map_merge.py to relax the welded keyframe graph.
+(6K x 6K), its K x K blocks segment-summed (ops/ba._segment_sum: the
+ordered kernel on the card, `index_add_` on the CPU; the plans are built
+once per call), and solved by Cholesky. Used by core/map_merge.py to relax
+the welded keyframe graph.
 
 Conventions: node poses are camera-from-world (T_iw); an edge (i, j)
 measures T_ij = T_iw o T_jw^-1; the residual is
@@ -14,6 +16,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from . import ba
+from .kernels import segment_plan
 from .lie import se3_compose, se3_exp, se3_inverse, se3_log
 from .linalg import solve_psd
 
@@ -60,6 +64,13 @@ def pose_graph_solve(node_R, node_t, node_fixed, node_valid, edge_i, edge_j, edg
     free_i = free[edge_i].to(node_R.dtype)[:, None, None]
     free_j = free[edge_j].to(node_R.dtype)[:, None, None]
     lin_edges = torch.func.vmap(_edge_lin)
+    # Dense normal system: every edge adds its four 6x6 blocks.
+    ab = torch.cat([edge_i * K + edge_i, edge_j * K + edge_j, edge_i * K + edge_j,
+                    edge_j * K + edge_i])
+    node = torch.cat([edge_i, edge_j])
+    ordered = ba._ordered(node_R)
+    plan_ab = segment_plan(ab, K * K) if ordered else None
+    plan_node = segment_plan(node, K) if ordered else None
 
     def linearize(R, t):
         r, Ji, Jj = lin_edges(R[edge_i], t[edge_i], R[edge_j], t[edge_j], edge_R, edge_t)
@@ -68,17 +79,12 @@ def pose_graph_solve(node_R, node_t, node_fixed, node_valid, edge_i, edge_j, edg
         cost = (r * w[:, None] * r).sum()
         Jiw = Ji * w[:, None, None]
         Jjw = Jj * w[:, None, None]
-        # Dense normal system: every edge adds its four 6x6 blocks.
-        ab = torch.cat([edge_i * K + edge_i, edge_j * K + edge_j, edge_i * K + edge_j,
-                        edge_j * K + edge_i])
         blocks = torch.cat([Jiw.transpose(1, 2) @ Ji, Jjw.transpose(1, 2) @ Jj,
                             Jiw.transpose(1, 2) @ Jj, Jjw.transpose(1, 2) @ Ji])
-        H = torch.zeros((K * K, 6, 6), dtype=R.dtype, device=R.device).index_add_(0, ab, blocks)
+        H = ba._segment_sum(blocks, ab, K * K, plan_ab)
         H = H.reshape(K, K, 6, 6).permute(0, 2, 1, 3).reshape(K * 6, K * 6)
-        g = torch.zeros((K, 6), dtype=R.dtype, device=R.device).index_add_(
-            0, torch.cat([edge_i, edge_j]),
-            torch.cat([(Jiw.transpose(1, 2) @ r[:, :, None])[..., 0],
-                       (Jjw.transpose(1, 2) @ r[:, :, None])[..., 0]]))
+        g = ba._segment_sum(torch.cat([(Jiw.transpose(1, 2) @ r[:, :, None])[..., 0],
+                                    (Jjw.transpose(1, 2) @ r[:, :, None])[..., 0]]), node, K, plan_node)
         return H, -g.reshape(-1), cost
 
     m = free.to(node_R.dtype).repeat_interleave(6)

@@ -25,7 +25,7 @@ from __future__ import annotations
 import torch
 from torch.func import jacfwd, vmap
 
-from .ba import LM_ITERS, backsub_landmarks, schur_reduce, visual_linearize
+from .ba import LM_ITERS, backsub_landmarks, schur_reduce, segment_plans, visual_linearize
 from .imu import gravity_like, inertial_residual
 from .lie import se3_compose, se3_exp
 from .linalg import solve_psd
@@ -116,6 +116,7 @@ def vi_ba_solve(kf_R, kf_t, kf_fixed, kf_valid, kf_v, kf_bg, kf_ba, mp_pos, mp_v
     vb_mask = torch.cat([torch.zeros(6, dtype=f, device=dev), torch.ones(9, dtype=f, device=dev)]).repeat(K)
     m = torch.cat([free[:, None].expand(K, 6), free_vb[:, None].expand(K, 9)], 1).reshape(-1).to(f)
     eye = torch.eye(K * 15, dtype=f, device=dev)
+    plans = segment_plans(obs_kf, obs_mp, obs_valid, obs_by_point, K, P, O)
 
     def edge(d, pre, Ri, ti, vi, bgi, bai, Rj, tj, vj, bgj, baj, bg0, ba0, wh):
         r = _edge_residual(d, pre, (Ri, ti, vi, bgi, bai), (Rj, tj, vj, bgj, baj), bg0, ba0, g, wh)
@@ -135,7 +136,7 @@ def vi_ba_solve(kf_R, kf_t, kf_fixed, kf_valid, kf_v, kf_bg, kf_ba, mp_pos, mp_v
 
     def visual(R, t, X):
         return visual_linearize(R, t, X, obs_kf, obs_mp, obs_uv, obs_w, free_obs, fx, fy, cx, cy,
-                                obs_ur, bf, K, P)
+                                obs_ur, bf, K, P, plans)
 
     def inertial_cost(r_in):
         return ((r_in * r_in).sum(-1) * edge_w).sum()
@@ -143,7 +144,7 @@ def vi_ba_solve(kf_R, kf_t, kf_fixed, kf_valid, kf_v, kf_bg, kf_ba, mp_pos, mp_v
     def solve(state, lin, r_in, J_in, lam):
         R, t, X, v, bg, ba = state
         S6, rhs6, Hll_inv = schur_reduce(lin["W"], lin["g_p"], lin["g_l"], lin["Hpp"], lin["Hll"],
-                                         obs_kf, obs_mp, obs_by_point, lam, K, P, O)
+                                         obs_kf, obs_mp, obs_by_point, lam, K, P, O, plans=plans)
         Jw = J_in * edge_w[:, None, None]
         J_i, J_j = Jw[:, :, :15], Jw[:, :, 15:]
         JiT, JjT = J_i.transpose(1, 2), J_j.transpose(1, 2)
@@ -170,7 +171,7 @@ def vi_ba_solve(kf_R, kf_t, kf_fixed, kf_valid, kf_v, kf_bg, kf_ba, mp_pos, mp_v
         dx = solve_psd(H + 1e-6 * eye, b.reshape(-1) * m).reshape(K, 15)
         dx = torch.where(torch.isfinite(dx), dx, torch.zeros_like(dx))
         dxi = dx[:, :6]
-        dX = backsub_landmarks(dxi, lin["W"], Hll_inv, lin["g_l"], obs_kf, obs_mp, P, mp_valid)
+        dX = backsub_landmarks(dxi, lin["W"], Hll_inv, lin["g_l"], obs_kf, obs_mp, P, mp_valid, plans)
         dR, dt_ = se3_exp(dxi)
         R_new, t_new = se3_compose(dR, dt_, R, t)
         fvb = free_vb[:, None]

@@ -16,7 +16,7 @@ from __future__ import annotations
 
 import torch
 
-from ..ops.ba import backsub_landmarks, schur_reduce, visual_linearize
+from ..ops.ba import backsub_landmarks, schur_reduce, segment_plans, visual_linearize
 from ..ops.lie import se3_compose, se3_exp
 from ..ops.linalg import solve_psd
 from .mesh import all_reduce_sum, group_or_world
@@ -49,10 +49,11 @@ def make_sharded_ba(group=None, iters=LM_ITERS):
         free_obs = free[obs_kf].to(dt)[:, None, None]
         m = free.to(dt).repeat_interleave(6)
         eye = torch.eye(K * 6, dtype=dt, device=mp_pos.device)
+        plans = segment_plans(obs_kf, obs_mp, obs_valid, obs_by_point, K, P, O)
 
         def linearize(R, t, X):
             return visual_linearize(R, t, X, obs_kf, obs_mp, obs_uv, obs_w, free_obs, fx, fy, cx, cy,
-                                    None, 0.0, K, P)
+                                    None, 0.0, K, P, plans)
 
         R, t, X = kf_R, kf_t, mp_pos
         lam = torch.tensor(1e-4, dtype=dt, device=mp_pos.device)
@@ -61,14 +62,15 @@ def make_sharded_ba(group=None, iters=LM_ITERS):
         costs = []
         for _ in range(iters):
             S, rhs, Hll_inv = schur_reduce(lin["W"], lin["g_p"], lin["g_l"], lin["Hpp"], lin["Hll"],
-                                           obs_kf, obs_mp, obs_by_point, lam, K, P, O, lam_pose=0.0)
+                                           obs_kf, obs_mp, obs_by_point, lam, K, P, O, lam_pose=0.0,
+                                           plans=plans)
             # One collective for the reduced camera system and its rhs.
             sys_ = all_reduce_sum(torch.cat([S.reshape(-1), rhs.reshape(-1)]), g)
             S, rhs = sys_[:36 * K * K].reshape(6 * K, 6 * K), sys_[36 * K * K:]
             S = (S + lam * eye) * m[:, None] * m[None, :] + torch.diag(1.0 - m)
             dxi = solve_psd(S + 1e-6 * eye, rhs * m).reshape(K, 6)
             dxi = torch.where(torch.isfinite(dxi), dxi, torch.zeros_like(dxi))
-            dX = backsub_landmarks(dxi, lin["W"], Hll_inv, lin["g_l"], obs_kf, obs_mp, P, mp_valid)
+            dX = backsub_landmarks(dxi, lin["W"], Hll_inv, lin["g_l"], obs_kf, obs_mp, P, mp_valid, plans)
             dR, dtr = se3_exp(dxi)
             R_new, t_new = se3_compose(dR, dtr, R, t)
             R_new = torch.where(free[:, None, None], R_new, R)

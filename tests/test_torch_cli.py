@@ -52,6 +52,22 @@ def test_mono_main_synthetic(tmp_path, monkeypatch):
     _outputs(24, 12)
 
 
+def test_mono_main_viewer_writes_frame_pngs(tmp_path, monkeypatch):
+    """--viewer DIR streams one annotated PNG per frame through the headless
+    viewer (cv2 is installed on this host), as the reference's CLI does."""
+    import cv2
+
+    monkeypatch.chdir(tmp_path)
+    assert cli.mono_main(["mono", MONO_YAML, "synthetic://n_frames=16", "--viewer", "frames", "--cpu"]) == 0
+    _outputs(16, 8)
+    pngs = sorted(os.listdir("frames"))
+    assert pngs == [f"frame_{k:06d}.png" for k in range(1, 17)]
+    img = cv2.imread(os.path.join("frames", pngs[-1]))
+    assert img.shape == (480, 640, 3)
+    green = (img[:, :, 1] == 255) & (img[:, :, 0] == 0) & (img[:, :, 2] == 0)
+    assert green.any()  # map-point inliers boxed
+
+
 @pytest.mark.slow  # ~35 s: the stereo depth's LK runs at 640x480 on the CPU
 def test_stereo_main_synthetic(tmp_path, monkeypatch):
     monkeypatch.chdir(tmp_path)
@@ -101,14 +117,14 @@ def test_frame_packed_stereo_pairs_match_the_reference(tmp_path):
 
 def test_entry_points_run_on_the_card_or_raise(tmp_path, monkeypatch):
     """Without --cpu every entry point asks for the card; with no card it
-    raises instead of running on the CPU. --viewer waits for its slice."""
+    raises instead of running on the CPU, with --viewer too."""
     monkeypatch.chdir(tmp_path)
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)  # a host without a card
     with pytest.raises(RuntimeError, match="cuda"):
         cli.mono_main(["mono", MONO_YAML, "synthetic://n_frames=2"])
     with pytest.raises(RuntimeError, match="cuda"):
         cli.stereo_main(["stereo", STEREO_YAML, "synthetic-stereo://n_frames=2"])
-    with pytest.raises(SystemExit, match="viewer"):
-        cli.mono_main(["mono", MONO_YAML, "synthetic://n_frames=2", "--viewer", "out", "--cpu"])
-    assert not os.path.exists("results.txt")
+    with pytest.raises(RuntimeError, match="cuda"):
+        cli.mono_main(["mono", MONO_YAML, "synthetic://n_frames=2", "--viewer", "out"])
+    assert not os.path.exists("results.txt") and not os.path.exists("out")
     assert cli.main(["cli"]) == 1 and cli.mono_main(["mono"]) == 1

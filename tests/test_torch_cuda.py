@@ -376,8 +376,9 @@ def test_vi_system_defaults_to_the_card(card):
 def test_pose_graph_on_the_card_agrees_with_the_cpu(card):
     """ops/posegraph.pose_graph_solve on tests/test_posegraph_imu.py's ring
     (12 nodes, 20 LM iterations) on the card and on the CPU. The card's
-    index_add_ sums in another order, so the poses are held within 1e-4, not
-    bit for bit; both close the loop (final cost < 1e-3). Printed (-s)."""
+    segment sums take the CPU's order, but its matmuls, jacfwd and Cholesky
+    round differently, so the poses are held within 1e-4, not bit for bit;
+    both close the loop (final cost < 1e-3). Printed (-s)."""
     from movslam_tpu_torch.ops import posegraph
 
     args, R_gt, t_gt = ring_graph(np.random.default_rng(12345))
@@ -444,10 +445,10 @@ def test_sharded_ba_on_the_card_agrees_with_ba_solve(card):
     """parallel/sharded_ba.py on one NCCL rank (a HashStore, world size 1)
     against ops/ba.ba_solve on the card, at tests/test_parallel.py's
     tolerances. The case is monocular with one fixed keyframe, so its scale
-    is free, and the card's atomic sums give each solve its own rounding:
-    two ba_solve calls part along that scale too (printed, -s). Poses and
-    points are compared once the scale about the fixed keyframe is removed
-    (parallel/gba.remove_scale_gauge)."""
+    is free, and the two solvers sum in their own orders (the sharded BA
+    adds the damping after its all-reduce), so they part along that scale
+    (printed, -s). Poses and points are compared once the scale about the
+    fixed keyframe is removed (parallel/gba.remove_scale_gauge)."""
     import torch.distributed as dist
 
     from movslam_tpu_torch.ops.ba import ba_solve
@@ -478,3 +479,84 @@ def test_sharded_ba_on_the_card_agrees_with_ba_solve(card):
     np.testing.assert_allclose(X_s, Xb, atol=5e-2)
     costs = costs.cpu().numpy()
     assert costs[-1] <= costs[0] and costs[-1] <= float(res["cost"]) * 1.1 + 1e-3
+
+
+def _spread(rng, shape):
+    """f32 values whose sum depends on its order (magnitudes 1e-4 to 1e4)."""
+    mag = 10.0 ** rng.uniform(-4, 4, (shape[0],) + (1,) * (len(shape) - 1))
+    return (rng.normal(size=shape) * mag).astype(np.float32)
+
+
+@pytest.mark.parametrize("trail", [(3,), (6,), (3, 3), (6, 6)], ids=["C3", "C6", "C9", "C36"])
+@pytest.mark.parametrize("masked", [False, True], ids=["every_row", "rows_left_out"])
+def test_segment_sum_is_bit_equal_to_cpu_index_add(card, trail, masked):
+    """csrc/segment_sum.cu against CPU index_add_ over every row of the same
+    inputs, bit for bit, with empty segments; where the plan leaves rows out
+    they carry zeros, as the BA's padding does. Two launches agree."""
+    rng = np.random.default_rng(len(trail) * 10 + masked)
+    R, n = 50_000, 700
+    idx = rng.integers(0, n - 100, R)  # the last 100 segments stay empty
+    x = _spread(rng, (R,) + trail)
+    keep = rng.random(R) < 0.7 if masked else np.ones(R, bool)
+    x[~keep] = 0.0
+    plan = kernels.segment_plan(torch.as_tensor(idx, device=card), n,
+                                torch.as_tensor(keep, device=card) if masked else None)
+    xd = torch.as_tensor(x, device=card)
+    before = kernels.segment_sum.launches
+    got, again = kernels.segment_sum(xd, plan), kernels.segment_sum(xd, plan)
+    torch.cuda.synchronize()
+    assert kernels.segment_sum.launches == before + 2
+    want = torch.zeros((n,) + trail).index_add_(0, torch.as_tensor(idx), torch.as_tensor(x))
+    assert torch.equal(got.cpu(), want) and torch.equal(got, again)
+
+
+def test_segment_sum_refuses_bad_inputs(card):
+    plan = kernels.segment_plan(torch.zeros(8, dtype=torch.int64, device=card), 4)
+    x = torch.zeros((8, 6), device=card)
+    with pytest.raises(ValueError):
+        kernels.segment_sum(x.cpu(), plan)  # mixed devices
+    with pytest.raises(ValueError):
+        kernels.segment_sum(torch.zeros((6, 8), device=card).t(), plan)  # strided
+    with pytest.raises(TypeError):
+        kernels.segment_sum(x.double(), plan)
+    with pytest.raises(ValueError):
+        kernels.segment_sum(x[:7], plan)  # rows and plan disagree
+
+
+def test_ba_solve_twice_is_bit_equal(card):
+    """Two ops/ba.ba_solve calls on one monocular problem (a free scale) give
+    the same bits on the card: its sums are ordered. A fresh problem and the
+    pose graph too."""
+    from movslam_tpu_torch.ops import posegraph
+    from movslam_tpu_torch.ops.ba import ba_solve
+    from tests._torch_dist import sharded_ba_case
+
+    case = sharded_ba_case(np.random.default_rng(12345))
+    args = [torch.as_tensor(case[k], device=card) for k in (
+        "kf_R", "kf_t", "kf_fixed", "kf_valid", "mp_pos", "mp_valid", "obs_kf", "obs_mp", "obs_uv",
+        "obs_valid", "obp_single")]
+    a, b = (ba_solve(*args, *case["intr"], iters=8) for _ in range(2))
+    assert all(torch.equal(a[k], b[k]) for k in a)
+    ring = [torch.as_tensor(x, device=card) for x in ring_graph(np.random.default_rng(12345))[0]]
+    p, q = (posegraph.pose_graph_solve(*ring) for _ in range(2))
+    assert all(torch.equal(x, y) for x, y in zip(p, q))
+
+
+def test_windowed_drive_twice_gives_equal_wires(card):
+    """The windowed drive of 24 frames twice with the same seed: every
+    dispatched program's int32 wire and every pose bit-equal (chip_smoke.py
+    gates the same on phase 3's per-frame drive)."""
+    import chip_smoke
+    from movslam_tpu_torch.config.settings import MONOCULAR, Settings
+    from movslam_tpu_torch.core.camera import Pinhole
+    from movslam_tpu_torch.core.system import System
+    from movslam_tpu_torch.io.synthetic import SyntheticStream
+
+    s = Settings()
+    s.camera1 = Pinhole(320.0, 320.0, 320.0, 240.0, 640, 480)
+    stream = SyntheticStream(n_points=400, seed=42)
+    frames = [stream.frame(k) for k in range(24)]
+    batches = [(0, 8, False), (8, 16, False), (16, 24, False), (0, 0, True)]
+    runs = [chip_smoke.repro_drive(System, s, MONOCULAR, frames, batches)[1] for _ in range(2)]
+    assert len(runs[0]["wires"]) >= 3 and runs[0]["wires"] == runs[1]["wires"]
+    assert runs[0]["poses"] == runs[1]["poses"] and runs[0]["trajectory"] == runs[1]["trajectory"]

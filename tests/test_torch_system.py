@@ -125,7 +125,7 @@ def test_stream_renders_reference_frames():
 
 def test_runs_with_jax_flax_yaml_cv2_blocked(tmp_path):
     code = textwrap.dedent("""
-        import sys
+        import os, sys
         for name in ("jax", "flax", "yaml", "cv2", "movslam_tpu"):
             sys.modules[name] = None
         import torch
@@ -136,7 +136,8 @@ def test_runs_with_jax_flax_yaml_cv2_blocked(tmp_path):
         from movslam_tpu_torch.io.synthetic import SyntheticStream
         s = Settings()
         s.camera1 = Pinhole(320.0, 320.0, 320.0, 240.0, 640, 480)
-        system = System(s, MONOCULAR, device="cpu")
+        system = System(s, MONOCULAR, device="cpu", use_viewer=True)
+        system.viewer.out_dir = "frames"
         stream = SyntheticStream(n_points=400, seed=11)
         for k in range(5):
             smv = stream.frame(k)
@@ -154,15 +155,20 @@ def test_runs_with_jax_flax_yaml_cv2_blocked(tmp_path):
         assert not map_merge.try_merge(system.atlas, device="cpu")  # one map: nothing to weld
         assert system.counts["windows"] >= 1 and len(poses) == 4, system.counts
         assert system.image_count == 9 and system.get_total_lost() == 0
+        assert system.viewer.count == 9 and not os.path.exists("frames")  # no cv2: nothing written
+        from movslam_tpu_torch.ops.express import save_express_file
+        out = save_express_file("ex.png", stream.render(0)[0][200:280, 280:400], 25, device="cpu")
+        assert os.listdir(".").count("ex.png.npy") == 1 and (out == 0).any()
         from movslam_tpu_torch.config.settings import STEREO
         from movslam_tpu_torch.config import rectify
         from movslam_tpu_torch.core import stereo, stereo_rectified
         from movslam_tpu_torch.io.synthetic_stereo import SyntheticStereoStream
         s.sensor, s.b, s.bf = STEREO, 0.25, 80.0
-        ssys = System(s, STEREO, device="cpu")
+        ssys = System(s, STEREO, device="cpu", use_viewer=True)
         for left, right in SyntheticStereoStream(seed=5).pairs(3):
             ssys.track_stereo(left.timestamp, left, right)
         ssys.shutdown()
+        assert ssys.viewer.count == 3
         assert ssys.tracking.state.name == "OK" and ssys.atlas.current.n_mappoints() > 100
         assert ssys.tracking.last_kf.depth_right is not None
         from movslam_tpu_torch.config.settings import IMU_MONOCULAR
@@ -189,6 +195,7 @@ def test_runs_with_jax_flax_yaml_cv2_blocked(tmp_path):
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr[-3000:]
     assert "slice ran without jax" in proc.stdout
+    assert proc.stdout.count("viewer: cv2 is not installed") == 2  # once per viewer
 
 
 def test_settings_from_yaml_matches_reference(tmp_path):
