@@ -25,7 +25,13 @@ Phases (any failure exits nonzero and prints no result line):
                row, inputs made on the card: bit-equal to CPU index_add_
                on the same inputs, and two launches bit-equal; device time
                per launch (graph of 200, or 20 at the caps' pair scatter),
-               wrapper and plain times, and index_add_'s device time.
+               wrapper and plain times, index_add_'s device time and the
+               bound. Then ops/ba.py's groups of sums, each in one
+               segment_sums launch at both shapes: visual_linearize's four
+               (g_p, g_l, Hpp, Hll) and schur_reduce's two (rhs, the pair
+               scatter), job by job bit-equal to CPU index_add_ and run to
+               run; device and wrapper time per group beside the jobs' own
+               launches.
   3. drive   : System.track_monocular on device="cuda" over
                SyntheticStream(n_points=400, seed=11) for 40 frames at
                640x480, with the gates of tests/test_pipeline.py (0 lost,
@@ -106,7 +112,9 @@ Phases (any failure exits nonzero and prints no result line):
                observations per keyframe, 20 iterations: the map at those
                caps, every non-anchor keyframe moved, finite, the
                reprojection error fell; ms, peak device memory, launches;
-               segment_sum launched over the phase.
+               segment_sum launched over the phase; every ba_solve call of
+               the phase made 1 + 3 * iters segment_sum launches (one per
+               group of sums) and every pose-graph call 1 + iters.
   9. ingest  : whether pkg-config finds libav (libavformat, libavcodec,
                libavutil, libswscale). Where it does: build the port's
                native decoder, encode 320 frames of SyntheticStream(
@@ -139,7 +147,7 @@ Phases (any failure exits nonzero and prints no result line):
                map (the same keyframes and points, pruning apart on <= 1%
                of the points; without the scale, poses within 5e-3 and
                points seen twice or more within 5e-2); segment_sum launched
-               over (b) and (c).
+               over (b) and (c), 1 + 3 * iters times in every ba_solve call.
 Every drive and phases 8 and 10 also gate that segment_sum launched (the
 BA's and pose graph's ordered sums).
 Before the last line it prints the card's name and power limit and one JSON
@@ -213,6 +221,39 @@ def reset_launches(kernels):
 def kernel_launches(kernels):
     """Every kernel wrapper's launch count, by name."""
     return {name: getattr(kernels, name).launches for name in KERNELS}
+
+
+@contextlib.contextmanager
+def launches_per_call(kernels, module, attr):
+    """Patch module.attr (a solver with an `iters` argument) to record, for
+    each call, (iters, segment_sum launches during the call). Yields the
+    list of records; the solver is put back on exit."""
+    import inspect
+
+    fn = getattr(module, attr)
+    sig = inspect.signature(fn)
+    calls = []
+
+    def spy(*args, **kwargs):
+        bound_args = sig.bind(*args, **kwargs)
+        bound_args.apply_defaults()
+        before = kernels.segment_sum.launches
+        out = fn(*args, **kwargs)
+        calls.append((bound_args.arguments["iters"], kernels.segment_sum.launches - before))
+        return out
+
+    setattr(module, attr, spy)
+    try:
+        yield calls
+    finally:
+        setattr(module, attr, fn)
+
+
+def launch_gate(calls, per_iter):
+    """Whether every recorded call launched segment_sum 1 + per_iter * iters
+    times (ops/ba.py: 1 + 3 iters per ba_solve; ops/posegraph.py: 1 + iters),
+    and at least one call was recorded."""
+    return bool(calls) and all(n == 1 + per_iter * it for it, n in calls)
 
 
 def fail(msg):
@@ -405,6 +446,7 @@ def segment_sum_phase(kernels, rng, dev, card):
     }
     err, times = 0.0, {}
     for label, (K, P, O, n_kf, n_mp, lo, hi) in shapes.items():
+        inputs = {}  # case name: (x, plan of ops/ba.segment_plans, CPU index_add_ over every row)
         obs_kf, obs_mp, valid, obp = ba_index_case(rng, K, P, O, n_kf, n_mp, lo, hi)
         okf, omp, oval, oobp = (torch.as_tensor(a, device=dev) for a in (obs_kf, obs_mp, valid, obp))
         plans = ba.segment_plans(okf, omp, oval, oobp, K, P, O)
@@ -456,9 +498,57 @@ def segment_sum_phase(kernels, rng, dev, card):
                   f"us/launch, wrapper {t['wrapper_ms'] * 1e3:.2f} us/call, plain {t['plain_ms'] * 1e3:.2f} "
                   f"us/call, index_add_ {t['library_ms'] * 1e3:.3f} us/launch (device, zeros included), bound "
                   f"{t['bound_ms'] * 1e3:.4f} us ({t['bound_by']}, {nbytes} B) on {card}", flush=True)
-            del xd, x_full, got, got_full
+            inputs[name] = (xd, plan, want)
+            del x_full, got, got_full
+        err = max(err, segment_groups_phase(kernels, label, inputs, times, card))
+        del inputs
         torch.cuda.empty_cache()
     return err, times
+
+
+# ops/ba.py's groups of sums, by phase 2's case names: visual_linearize's
+# (g_p, g_l, Hpp, Hll) and schur_reduce's (rhs, the pair scatter).
+SEGMENT_GROUPS = {"linearize": ("kf_C6", "mp_C3", "kf_C36", "mp_C9"), "schur": ("kf_C6", "pair_C36")}
+
+
+def segment_groups_phase(kernels, label, inputs, times, card):
+    """Phase 2's grouped segment sums at one shape: each group of
+    SEGMENT_GROUPS in one segment_sums launch on phase 2's inputs, job by
+    job bit-equal to CPU index_add_ and two launches bit-equal; device
+    time per group, wrapper time per call, the bound of the group's bytes
+    and the sum of its jobs' index_add_ times. Adds them to `times`;
+    returns the largest error (0)."""
+    import torch
+
+    err, t0 = 0.0, time.perf_counter()
+    for group, names in SEGMENT_GROUPS.items():
+        jobs = [inputs[name][:2] for name in names]
+        got = [kernels.segment_sums(jobs) for _ in range(2)]
+        torch.cuda.synchronize()
+        for name, g, again in zip(names, *got):
+            e = max_err([g.cpu()], [inputs[name][2]])
+            err = max(err, e)
+            if e or not torch.equal(g.cpu(), inputs[name][2]):
+                fail(f"segment_sums {label} {group}: job {name} is not bit-equal to CPU index_add_: {e}")
+            if not torch.equal(g, again):
+                fail(f"segment_sums {label} {group}: two launches differ in job {name}")
+        cases = [times[f"{label} {name}"] for name in names]
+        big = any(c["rows"] * c["columns"] > 2**24 for c in cases)
+        nbytes = sum(c["bytes"] for c in cases)
+        t = {"ms": graph_ms(lambda: kernels.segment_sums(jobs), n=20 if big else GRAPH_LAUNCHES),
+             "wrapper_ms": call_ms(lambda: kernels.segment_sums(jobs), reps=20),
+             "jobs_ms": sum(c["ms"] for c in cases), "jobs_wrapper_ms": sum(c["wrapper_ms"] for c in cases),
+             "library_ms": sum(c["library_ms"] for c in cases), "jobs": list(names), "bytes": nbytes}
+        t["bound_ms"], t["bound_by"] = bound(nbytes, sum(c["rows_kept"] * c["columns"] for c in cases))
+        times[f"{label} group_{group}"] = t
+        print(f"kernels: segment_sums {label} group {group} ({len(names)} jobs: {', '.join(names)}): bit-equal to "
+              f"CPU index_add_ job by job and run to run; device {t['ms'] * 1e3:.3f} us/launch (the jobs one "
+              f"launch each: {t['jobs_ms'] * 1e3:.3f} us), wrapper {t['wrapper_ms'] * 1e3:.2f} us/call (one "
+              f"call each: {t['jobs_wrapper_ms'] * 1e3:.2f} us), index_add_ {t['library_ms'] * 1e3:.3f} us "
+              f"(sum of the jobs), bound {t['bound_ms'] * 1e3:.4f} us ({t['bound_by']}, {nbytes} B) on {card}",
+              flush=True)
+    print(f"kernels: segment_sums {label} groups checked and timed in {time.perf_counter() - t0:.1f} s", flush=True)
+    return err
 
 
 def drive(system_cls, settings, frames, monocular, profile_frames=(), poses=None):
@@ -1980,7 +2070,19 @@ def main():
     phase_done("vi")
 
     # --- 8. the Atlas back end on phase 3's map -------------------------------------
-    atlas = atlas_phase(System, s, MONOCULAR, system, stream, card)
+    # Every ba_solve and pose-graph call of phases 8 and 10 must make one
+    # segment_sums launch per group of sums: 1 + 3 iters and 1 + iters.
+    from movslam_tpu_torch.core import map_merge
+    from movslam_tpu_torch.ops import ba
+
+    with launches_per_call(kernels, ba, "ba_solve") as ba_calls, \
+            launches_per_call(kernels, map_merge, "pose_graph_solve") as pg_calls:
+        atlas = atlas_phase(System, s, MONOCULAR, system, stream, card)
+    atlas["segment_sum_launches_per_call"] = {"ba_solve": ba_calls, "pose_graph_solve": pg_calls}
+    print(f"atlas: segment_sum launches per call, as (iters, launches): ba_solve {ba_calls}, pose graph "
+          f"{pg_calls} on {card}", flush=True)
+    if not (launch_gate(ba_calls, 3) and launch_gate(pg_calls, 1)):
+        fail("atlas: segment_sum launches per ba_solve call != 1 + 3 iters or per pose-graph call != 1 + iters")
     phase_done("atlas")
 
     # --- 9. video ingest and the CLI's drive ----------------------------------------
@@ -1988,7 +2090,13 @@ def main():
     phase_done("ingest")
 
     # --- 10. parallel/ over a one-rank NCCL group -----------------------------------
-    par = parallel_phase(System, s, MONOCULAR, SyntheticStream, kernels, card, system)
+    with launches_per_call(kernels, ba, "ba_solve") as ba_calls:
+        par = parallel_phase(System, s, MONOCULAR, SyntheticStream, kernels, card, system)
+    par["segment_sum_launches_per_ba_solve"] = ba_calls
+    print(f"parallel: segment_sum launches per ba_solve call, as (iters, launches): {ba_calls} on {card}",
+          flush=True)
+    if not launch_gate(ba_calls, 3):
+        fail("parallel: segment_sum launches per ba_solve call != 1 + 3 iters")
     phase_done("parallel")
     check_banned()
 

@@ -8,17 +8,21 @@ Cholesky. The Schur coupling scatters the per-point (a, b) blocks directly
 instead of the reference's one-hot einsum.
 
 Segment sums: `index_add_` on the CPU; on the card the ordered
-kernels.segment_sum, whose order is the CPU's, so a solve gives the same
-bits on every run (`index_add_` there is float atomics). The plans that fix
-that order depend only on the problem's indices: ba_solve builds them once
-(segment_plans) and every LM iteration reuses them.
+kernels.segment_sums, whose order is the CPU's, so a solve gives the same
+bits on every run (`index_add_` there is float atomics). The sums that are
+ready together share one launch: visual_linearize's four, schur_reduce's
+two, backsub_landmarks' one, so an LM solve of `iters` iterations makes
+1 + 3 * iters launches. The plans that fix the order depend only on the
+problem's indices: ba_solve builds them once (segment_plans) and every LM
+iteration reuses them.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
-from .kernels import segment_plan, segment_sum
+from . import kernels
+from .kernels import segment_plan
 from .lie import hat, se3_compose, se3_exp
 from .linalg import inv3x3, solve_psd
 
@@ -32,14 +36,21 @@ def _ordered(x):
     return x.device.type != "cpu"
 
 
+def _segment_sums(jobs):
+    """Sum the rows of each job's x into n segments by idx, for jobs of
+    (x, idx, n, plan) on one device: `index_add_` per job on the CPU; on
+    the card one launch of the ordered kernel over the plans
+    (segment_plan(idx, n) where plan is None)."""
+    if not _ordered(jobs[0][0]):
+        return [torch.zeros((n,) + x.shape[1:], dtype=x.dtype, device=x.device).index_add_(0, idx, x)
+                for x, idx, n, _ in jobs]
+    return kernels.segment_sums([(x, plan if plan is not None else segment_plan(idx, n))
+                                 for x, idx, n, plan in jobs])
+
+
 def _segment_sum(x, idx, n, plan=None):
-    """Sum the rows of x into n segments by idx: `index_add_` on the CPU;
-    on the card the ordered kernel over `plan` (segment_plan(idx, n) when
-    None)."""
-    if not _ordered(x):
-        out = torch.zeros((n,) + x.shape[1:], dtype=x.dtype, device=x.device)
-        return out.index_add_(0, idx, x)
-    return segment_sum(x, plan if plan is not None else segment_plan(idx, n))
+    """One sum of _segment_sums."""
+    return _segment_sums([(x, idx, n, plan)])[0]
 
 
 def _listed_obs(obs_by_point, O):
@@ -129,7 +140,6 @@ def schur_reduce(W, g_p, g_l, Hpp, Hll, obs_kf, obs_mp, obs_by_point, lam, K, P,
     eye6 = torch.eye(6, dtype=W.dtype, device=W.device)
     Hll_inv = inv3x3(Hll + lam * eye3 + 1e-8 * eye3, eps=1e-30)
     Hinv_gl = (Hll_inv @ g_l[:, :, None])[..., 0]
-    rhs = g_p - _segment_sum((W @ Hinv_gl[obs_mp][:, :, None])[..., 0], obs_kf, K, plans.get("kf"))
 
     # Pair blocks W_a Hinv_p W_b^T of every point's listed observations,
     # scattered into the (a, b) block of S; index O is the padding slot.
@@ -138,8 +148,11 @@ def schur_reduce(W, g_p, g_l, Hpp, Hll, obs_kf, obs_mp, obs_by_point, lam, K, P,
     Yp = Wp @ Hll_inv[:, None]  # (P, M, 6, 3)
     blocks = torch.einsum("pmik,pnjk->pmnij", Yp, Wp).reshape(-1, 6, 6)  # (P*M*M, 6, 6)
     pair = plans.get("pair")
-    S = -(segment_sum(blocks, pair) if pair is not None else
-          _segment_sum(blocks, _pair_index(obs_kf, ob, K), K * K))
+    rhs_sum, S = _segment_sums([
+        ((W @ Hinv_gl[obs_mp][:, :, None])[..., 0], obs_kf, K, plans.get("kf")),
+        (blocks, None if pair is not None else _pair_index(obs_kf, ob, K), K * K, pair)])
+    rhs = g_p - rhs_sum
+    S = -S
     diag = torch.arange(K, device=W.device) * (K + 1)
     S[diag] += Hpp + (lam if lam_pose is None else lam_pose) * eye6
     S = S.reshape(K, K, 6, 6).permute(0, 2, 1, 3).reshape(K * 6, K * 6)
@@ -158,10 +171,12 @@ def visual_linearize(R, t, X, obs_kf, obs_mp, obs_uv, obs_w, free_obs, fx, fy, c
     Jpw = Jp * w[:, None, None]
     Jlw = Jl * w[:, None, None]
     pk, pm = plans.get("kf"), plans.get("mp")
-    g_p = -_segment_sum((Jpw.transpose(1, 2) @ r[:, :, None])[..., 0], obs_kf, K, pk)
-    g_l = -_segment_sum((Jlw.transpose(1, 2) @ r[:, :, None])[..., 0], obs_mp, P, pm)
-    Hpp = _segment_sum(Jpw.transpose(1, 2) @ Jp, obs_kf, K, pk)
-    Hll = _segment_sum(Jlw.transpose(1, 2) @ Jl, obs_mp, P, pm)
+    g_p, g_l, Hpp, Hll = _segment_sums([
+        ((Jpw.transpose(1, 2) @ r[:, :, None])[..., 0], obs_kf, K, pk),
+        ((Jlw.transpose(1, 2) @ r[:, :, None])[..., 0], obs_mp, P, pm),
+        (Jpw.transpose(1, 2) @ Jp, obs_kf, K, pk),
+        (Jlw.transpose(1, 2) @ Jl, obs_mp, P, pm)])
+    g_p, g_l = -g_p, -g_l
     W = Jpw.transpose(1, 2) @ Jl  # (O, 6, 3)
     return {"W": W, "g_p": g_p, "g_l": g_l, "Hpp": Hpp, "Hll": Hll,
             "cost": _total_cost(chi2, obs_w), "chi2": chi2, "z": z}

@@ -11,9 +11,10 @@ for the design):
 
 One has no TPU counterpart (csrc/segment_sum.cu):
 
-  segment_sum       the ordered f32 segment sum of the BA and the pose
-                    graph: the order CPU index_add_ takes, the same on
-                    every run, where index_add_ on the card is atomics.
+  segment_sums      the ordered f32 segment sums of the BA and the pose
+                    graph, up to four in one launch (segment_sum: one):
+                    the order CPU index_add_ takes, the same on every
+                    run, where index_add_ on the card is atomics.
 
 Each CUDA source is compiled with nvcc at first use into
 movslam_tpu_torch/_build/ (keyed by a hash of the source; one nvcc per
@@ -23,14 +24,16 @@ CPU tests import this module without nvcc.
 
 On a CPU tensor a wrapper runs its plain version; on a CUDA tensor it
 launches the kernel or raises. There is no fallback. Each wrapper counts its
-launches in `<wrapper>.launches`.
+launches in `<wrapper>.launches` (segment_sums' in segment_sum.launches).
 """
 from __future__ import annotations
 
 import ctypes
 import hashlib
+import math
 import os
 import shutil
+import struct
 import subprocess
 import tempfile
 from pathlib import Path
@@ -62,8 +65,8 @@ _SOURCES = {  # CUDA source -> {C entry point: argtypes}
                                     _P, _P, _P, _P, _P, _P],
     },
     "segment_sum.cu": {
-        # x, C, perm, offsets, n, out, stream
-        "segment_sum_launch": [_P, _I, _P, _P, _I, _P, _P],
+        # count, table (x, perm, offsets, output offset, C, n, R per job, int64), out, stream
+        "segment_sums_launch": [_I, ctypes.c_char_p, _P, _P],
     },
 }
 
@@ -326,11 +329,25 @@ score_candidates.launches = 0
 class SegmentPlan(NamedTuple):
     """The summation order of one index vector over n segments: perm lists
     the kept rows stable-sorted by segment (rows left out sort past
-    offsets[n]) and offsets[s]..offsets[s + 1] is segment s's run of it."""
+    offsets[n]) and offsets[s]..offsets[s + 1] is segment s's run of it.
+    checked: the plan's dtypes, shapes, layout and device were checked
+    (segment_plan checks what it builds; segment_sums checks any other plan
+    on every call)."""
 
     perm: torch.Tensor  # (R,) int32
     offsets: torch.Tensor  # (n + 1,) int32
     n: int
+    checked: bool = False
+
+
+def _check_plan(plan):
+    if plan.perm.dim() != 1 or plan.perm.dtype != torch.int32 or plan.offsets.dtype != torch.int32 or \
+            tuple(plan.offsets.shape) != (plan.n + 1,):
+        raise TypeError("the plan must be int32 perm (R,) and offsets (n + 1,), as segment_plan makes it")
+    if plan.perm.device != plan.offsets.device:
+        raise ValueError("the plan's perm and offsets lie on different devices")
+    if not (plan.perm.is_contiguous() and plan.offsets.is_contiguous()):
+        raise ValueError("the plan needs contiguous perm and offsets")
 
 
 def segment_plan(idx, n, keep=None):
@@ -343,7 +360,9 @@ def segment_plan(idx, n, keep=None):
     perm = torch.argsort(idx, stable=True)
     starts = torch.arange(n + 1, dtype=torch.int64, device=idx.device)
     offsets = torch.searchsorted(idx[perm], starts)
-    return SegmentPlan(perm.to(torch.int32), offsets.to(torch.int32), n)
+    plan = SegmentPlan(perm.to(torch.int32), offsets.to(torch.int32), n)
+    _check_plan(plan)
+    return plan._replace(checked=True)
 
 
 def segment_sum_ref(x, plan):
@@ -356,35 +375,89 @@ def segment_sum_ref(x, plan):
     return out.index_add_(0, seg, x[rows])
 
 
-def segment_sum(x, plan):
-    """Ordered segment sum: out[s] = sum of x[i] over the plan's rows i of
-    segment s, in increasing i, one sequential f32 sum per element. x (R,
-    ...) f32, contiguous; the trailing dims are summed as C columns.
+def segment_sums_ref(jobs):
+    """Plain segment_sums: segment_sum_ref job by job."""
+    return [segment_sum_ref(x, p) for x, p in jobs]
 
-    CUDA tensors launch csrc/segment_sum.cu (the order CPU index_add_ takes,
-    bit for bit); CPU tensors run segment_sum_ref. Any other device, dtype
-    or layout raises. Returns (plan.n, ...) f32."""
-    if x.dim() < 1 or plan.perm.dim() != 1 or plan.perm.shape[0] != x.shape[0]:
-        raise ValueError(f"x {tuple(x.shape)} does not match a plan over {plan.perm.shape[0]} rows")
-    if plan.perm.dtype != torch.int32 or plan.offsets.dtype != torch.int32 or \
-            tuple(plan.offsets.shape) != (plan.n + 1,):
-        raise TypeError("the plan must be int32 perm (R,) and offsets (n + 1,), as segment_plan makes it")
-    dev = _common_device("segment_sum", x, plan.perm, plan.offsets)
+
+MAX_JOBS = 4  # jobs of one segment_sums launch (csrc/segment_sum.cu kMaxJobs)
+
+
+def _contiguous_strides(shape):
+    strides, step = [], 1
+    for d in reversed(shape):
+        strides.append(step)
+        step *= d
+    return strides[::-1]
+
+
+def segment_sums(jobs):
+    """Ordered segment sums of up to MAX_JOBS (x, plan) jobs in one launch:
+    for each job, out[s] = sum of x[i] over the plan's rows i of segment s,
+    in increasing i, one sequential f32 sum per element. x (R, ...) f32,
+    contiguous; its trailing dims are summed as C columns. The jobs may
+    differ in plan, segment count and C, not in device.
+
+    CUDA tensors launch csrc/segment_sum.cu once for the group (the order
+    CPU index_add_ takes, bit for bit); CPU tensors run segment_sums_ref.
+    Any other device, dtype or layout raises. The host reads shapes only,
+    never the plans' contents. Returns a list of (plan.n, ...) f32."""
+    if len(jobs) > MAX_JOBS:
+        raise ValueError(f"segment_sums takes at most {MAX_JOBS} jobs, got {len(jobs)}")
+    dev = None
+    for x, plan in jobs:
+        if not plan.checked:
+            _check_plan(plan)
+        if x.dim() < 1 or x.shape[0] != plan.perm.shape[0]:
+            raise ValueError(f"x {tuple(x.shape)} does not match a plan over {plan.perm.shape[0]} rows")
+        x_dev = x.device
+        if x_dev != plan.perm.device or (dev is not None and x_dev != dev):
+            raise ValueError(f"segment_sums' tensors lie on different devices: {x_dev}, "
+                             f"{plan.perm.device}{'' if dev is None else f', {dev}'}")
+        dev = x_dev
+    if dev is None:
+        return []
     if dev.type == "cpu":
-        return segment_sum_ref(x, plan)
-    if x.dtype != torch.float32:
-        raise TypeError(f"segment_sum sums float32 on the card, got {x.dtype}")
-    if not all(t.is_contiguous() for t in (x, plan.perm, plan.offsets)):
-        raise ValueError("segment_sum needs contiguous tensors")
-    C = 1
-    for d in x.shape[1:]:
-        C *= d
-    out = torch.empty((plan.n,) + tuple(x.shape[1:]), dtype=torch.float32, device=dev)
-    if out.numel():
-        _launch("segment_sum_launch", dev, x.data_ptr(), C, plan.perm.data_ptr(),
-                plan.offsets.data_ptr(), plan.n, out.data_ptr())
+        return segment_sums_ref(jobs)
+    # The job table (7 int64 a job: x, perm, offsets, the output's offset in
+    # floats, C, n, R) and the outputs' shapes; each output starts on 16 bytes.
+    table, views, size = [], [], 0
+    for x, plan in jobs:
+        if x.dtype != torch.float32:
+            raise TypeError(f"segment_sums sums float32 on the card, got {x.dtype}")
+        if not x.is_contiguous():
+            raise ValueError("segment_sums needs contiguous x")
+        shape = (plan.n, *x.shape[1:])
+        C = math.prod(shape[1:])
+        views.append((shape, size))
+        if plan.n * C:
+            table += (x.data_ptr(), plan.perm.data_ptr(), plan.offsets.data_ptr(), size, C, plan.n, x.shape[0])
+        size += (plan.n * C + 3) & ~3
+    if dev.type != "cuda":
+        raise ValueError(f"segment_sums runs on cuda or cpu tensors, got {dev}")
+    buf = torch.empty(size, dtype=torch.float32, device=dev)  # every output, as views
+    outs = [buf.as_strided(shape, _contiguous_strides(shape), offset) for shape, offset in views]
+    if table:
+        # The raw stream handle: torch.cuda.current_stream() builds a Stream
+        # object, several µs of a call that the BA makes 31 times a solve.
+        fn = _fns.get("segment_sums_launch") or build()["segment_sums_launch"]
+        args = (len(table) // 7, struct.pack(f"{len(table)}q", *table), buf.data_ptr())
+        if dev.index != torch.cuda.current_device():
+            with torch.cuda.device(dev):
+                err = fn(*args, torch._C._cuda_getCurrentRawStream(dev.index))
+        else:
+            err = fn(*args, torch._C._cuda_getCurrentRawStream(dev.index))
+        if err != 0:
+            raise RuntimeError(f"segment_sums_launch failed: cudaError {err}")
         segment_sum.launches += 1
-    return out
+    return outs
+
+
+def segment_sum(x, plan):
+    """One ordered segment sum: segment_sums([(x, plan)])[0]. x (R, ...)
+    f32; returns (plan.n, ...) f32. Its `launches` counts the launches of
+    csrc/segment_sum.cu, one per segment_sums group."""
+    return segment_sums([(x, plan)])[0]
 
 
 segment_sum.launches = 0

@@ -2,8 +2,9 @@
 
 Port of movslam_tpu/ops/posegraph.py. Per-edge Jacobians come from
 forward-mode autodiff vmapped over the edges; the normal system is dense
-(6K x 6K), its K x K blocks segment-summed (ops/ba._segment_sum: the
-ordered kernel on the card, `index_add_` on the CPU; the plans are built
+(6K x 6K), its K x K blocks and the gradient segment-summed
+(ops/ba._segment_sums: one launch of the ordered kernel on the card, so
+1 + iters launches a call; `index_add_` on the CPU; the plans are built
 once per call), and solved by Cholesky. Used by core/map_merge.py to relax
 the welded keyframe graph.
 
@@ -81,10 +82,10 @@ def pose_graph_solve(node_R, node_t, node_fixed, node_valid, edge_i, edge_j, edg
         Jjw = Jj * w[:, None, None]
         blocks = torch.cat([Jiw.transpose(1, 2) @ Ji, Jjw.transpose(1, 2) @ Jj,
                             Jiw.transpose(1, 2) @ Jj, Jjw.transpose(1, 2) @ Ji])
-        H = ba._segment_sum(blocks, ab, K * K, plan_ab)
+        H, g = ba._segment_sums([(blocks, ab, K * K, plan_ab),
+                                 (torch.cat([(Jiw.transpose(1, 2) @ r[:, :, None])[..., 0],
+                                             (Jjw.transpose(1, 2) @ r[:, :, None])[..., 0]]), node, K, plan_node)])
         H = H.reshape(K, K, 6, 6).permute(0, 2, 1, 3).reshape(K * 6, K * 6)
-        g = ba._segment_sum(torch.cat([(Jiw.transpose(1, 2) @ r[:, :, None])[..., 0],
-                                    (Jjw.transpose(1, 2) @ r[:, :, None])[..., 0]]), node, K, plan_node)
         return H, -g.reshape(-1), cost
 
     m = free.to(node_R.dtype).repeat_interleave(6)

@@ -523,6 +523,77 @@ def test_segment_sum_refuses_bad_inputs(card):
         kernels.segment_sum(x[:7], plan)  # rows and plan disagree
 
 
+def _grouped_case(rng, R, n, trail, lo=0, hi=None, keep_frac=1.0, segments=None):
+    """x (R, *trail) and its plan over n segments (idx drawn from lo..hi, or
+    from `segments`); rows a plan leaves out carry zeros, as the BA's
+    padding does. Returns (x, idx, plan, CPU index_add_ over every row)."""
+    idx = rng.choice(segments, R) if segments is not None else rng.integers(lo, hi or n, R)
+    x = _spread(rng, (R,) + trail)
+    keep = rng.random(R) < keep_frac
+    x[~keep] = 0.0
+    want = torch.zeros((n,) + trail).index_add_(0, torch.as_tensor(idx), torch.as_tensor(x))
+    return x, idx, keep, want
+
+
+GROUPED_CASES = {  # name: list of (R, n, trail, kwargs) jobs of one group
+    "one_chain_of_20000_rows": [(20_000, 1, (6,), {})],
+    "589824_segments_95pc_empty": [(100_000, 589_824, (6, 6), {"segments": "5pc"})],
+    "C1": [(30_000, 500, (), {})],
+    "C3": [(30_000, 500, (3,), {})],
+    "C6": [(30_000, 48, (6,), {"hi": 11})],
+    "C9": [(30_000, 5000, (3, 3), {})],
+    "C36": [(30_000, 2304, (6, 6), {})],
+    "rows_left_out": [(30_000, 700, (6, 6), {"keep_frac": 0.3})],
+    "four_jobs": [(4096, 48, (6,), {"hi": 11, "keep_frac": 0.7}), (4096, 1024, (3,), {"keep_frac": 0.7}),
+                  (4096, 48, (6, 6), {"hi": 11, "keep_frac": 0.7}), (40_000, 2304, (6, 6), {"keep_frac": 0.1})],
+}
+
+
+@pytest.mark.parametrize("name", list(GROUPED_CASES))
+def test_segment_sums_group_is_bit_equal_to_cpu_index_add(card, name):
+    """One segment_sums launch over the case's jobs (csrc/segment_sum.cu)
+    against CPU index_add_ over every row, job by job, bit for bit; two
+    launches agree. Covers one long chain, mostly empty segments, C = 1, 3,
+    6, 9, 36, plans that leave rows out and four jobs of different plans."""
+    rng = np.random.default_rng(sorted(GROUPED_CASES).index(name))
+    jobs, wants = [], []
+    for R, n, trail, kw in GROUPED_CASES[name]:
+        if kw.get("segments") == "5pc":
+            kw = dict(kw, segments=rng.choice(n, n // 20, replace=False))
+        x, idx, keep, want = _grouped_case(rng, R, n, trail, **kw)
+        plan = kernels.segment_plan(torch.as_tensor(idx, device=card), n,
+                                    torch.as_tensor(keep, device=card) if not keep.all() else None)
+        jobs.append((torch.as_tensor(x, device=card), plan))
+        wants.append(want)
+    before = kernels.segment_sum.launches
+    got, again = kernels.segment_sums(jobs), kernels.segment_sums(jobs)
+    torch.cuda.synchronize()
+    assert kernels.segment_sum.launches == before + 2
+    for g, a, w in zip(got, again, wants):
+        assert g.shape == w.shape and torch.equal(g.cpu(), w) and torch.equal(g, a)
+
+
+def test_segment_sum_launches_per_ba_solve_and_pose_graph(card):
+    """One segment_sums launch per group of sums: 1 + 3 * iters over a
+    ba_solve call (31 at 10 LM iterations) and 1 + iters over a pose-graph
+    call (21 at 20)."""
+    from movslam_tpu_torch.ops import posegraph
+    from movslam_tpu_torch.ops.ba import ba_solve
+    from tests._torch_dist import sharded_ba_case
+
+    case = sharded_ba_case(np.random.default_rng(12345))
+    args = [torch.as_tensor(case[k], device=card) for k in (
+        "kf_R", "kf_t", "kf_fixed", "kf_valid", "mp_pos", "mp_valid", "obs_kf", "obs_mp", "obs_uv",
+        "obs_valid", "obp_single")]
+    before = kernels.segment_sum.launches
+    ba_solve(*args, *case["intr"], iters=10)
+    assert kernels.segment_sum.launches - before == 31
+    ring = [torch.as_tensor(x, device=card) for x in ring_graph(np.random.default_rng(12345))[0]]
+    before = kernels.segment_sum.launches
+    posegraph.pose_graph_solve(*ring, iters=20)
+    assert kernels.segment_sum.launches - before == 21
+
+
 def test_ba_solve_twice_is_bit_equal(card):
     """Two ops/ba.ba_solve calls on one monocular problem (a free scale) give
     the same bits on the card: its sums are ordered. A fresh problem and the

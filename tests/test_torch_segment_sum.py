@@ -4,9 +4,10 @@ segment_plan, segment_sum; csrc/segment_sum.cu on the card) on the CPU.
 The card's kernel sums each segment's rows in increasing row order, which is
 the order CPU index_add_ takes; the first test guards that premise, which
 the card tests (tests/test_torch_cuda.py) and chip_smoke.py's bit-equality
-gate rely on. The others hold the plan, the plain version and the solvers'
-ordered path (ops/ba._ordered forced on the CPU) against index_add_, bit for
-bit."""
+gate rely on. The others hold the plan, the plain version, the grouped entry
+point segment_sums and the solvers' ordered path (ops/ba._ordered forced on
+the CPU) against index_add_, bit for bit, and count the groups the solvers
+launch."""
 import numpy as np
 import pytest
 import torch
@@ -85,6 +86,90 @@ def test_segment_sum_refuses_what_the_plan_does_not_match():
         kernels.segment_sum(torch.zeros((7, 6)), plan)
     with pytest.raises(TypeError):
         kernels.segment_sum(torch.zeros((8, 6)), kernels.SegmentPlan(plan.perm.long(), plan.offsets, 4))
+
+
+SUMS_JOBS = [  # (R, n, trailing shape, segments in use, share of rows kept)
+    (4096, 48, (6,), 11, 0.7), (4096, 1024, (3,), 1024, 0.7), (3000, 300, (6, 6), 250, 1.0),
+    (500, 7, (), 7, 0.5),
+]
+
+
+@pytest.mark.parametrize("count", [1, 2, 3, 4])
+def test_segment_sums_ref_equals_index_add_job_by_job(count):
+    """segment_sums over 1-4 jobs of different plans, segment counts and C
+    (its plain version on the CPU, segment_sums_ref) equals index_add_ job
+    by job, bit for bit, and launches nothing."""
+    rng = np.random.default_rng(count)
+    jobs, wants = [], []
+    for R, n, trail, used, kept in SUMS_JOBS[:count]:
+        idx = rng.integers(0, used, R)
+        x = _spread(rng, (R,) + trail)
+        keep = rng.random(R) < kept
+        x[~keep] = 0.0
+        jobs.append((torch.as_tensor(x), kernels.segment_plan(torch.as_tensor(idx), n, torch.as_tensor(keep))))
+        wants.append(torch.zeros((n,) + trail).index_add_(0, torch.as_tensor(idx), torch.as_tensor(x)))
+    before = kernels.segment_sum.launches
+    for got in (kernels.segment_sums(jobs), kernels.segment_sums_ref(jobs)):
+        assert len(got) == count and all(g.shape == w.shape and torch.equal(g, w) for g, w in zip(got, wants))
+    assert kernels.segment_sum.launches == before
+
+
+def test_segment_sums_refuses_what_a_kernel_would_not_take():
+    """More than four jobs, jobs on different devices, x and plan on
+    different devices, rows that disagree with the plan, and (past the CPU,
+    here the meta device) a non-f32 or strided x, or a device that is not
+    CUDA."""
+    plan = kernels.segment_plan(torch.zeros(8, dtype=torch.int64), 4)
+    x = torch.zeros((8, 6))
+    with pytest.raises(ValueError, match="at most 4"):
+        kernels.segment_sums([(x, plan)] * 5)
+    meta_plan = kernels.SegmentPlan(plan.perm.to("meta"), plan.offsets.to("meta"), 4)
+    with pytest.raises(ValueError, match="different devices"):
+        kernels.segment_sums([(x, plan), (x.to("meta"), meta_plan)])
+    with pytest.raises(ValueError, match="different devices"):
+        kernels.segment_sums([(x.to("meta"), plan)])
+    with pytest.raises(ValueError, match="does not match"):
+        kernels.segment_sums([(x, plan), (x[:7], plan)])
+    with pytest.raises(TypeError, match="float32"):
+        kernels.segment_sums([(x.to("meta", torch.float64), meta_plan)])
+    with pytest.raises(ValueError, match="contiguous"):
+        kernels.segment_sums([(torch.zeros((6, 8), device="meta").t(), meta_plan)])
+    with pytest.raises(ValueError, match="cuda or cpu"):
+        kernels.segment_sums([(x.to("meta"), meta_plan)])
+    assert kernels.segment_sums([]) == []
+
+
+def _count_groups(monkeypatch):
+    """Force the card's ordered path on the CPU and record the number of
+    jobs of every kernels.segment_sums call."""
+    calls = []
+    sums = kernels.segment_sums
+    monkeypatch.setattr(ba, "_ordered", lambda x: True)
+    monkeypatch.setattr(kernels, "segment_sums", lambda jobs: calls.append(len(jobs)) or sums(jobs))
+    return calls
+
+
+@pytest.mark.parametrize("iters", [10, 3])
+def test_ba_solve_makes_one_launch_per_group(monkeypatch, iters):
+    """An ordered ba_solve makes 1 + 3 iters segment_sums calls carrying
+    4 + 7 iters jobs (31 and 74 at 10 LM iterations): the linearization's
+    four sums, the Schur reduction's two and the back-substitution's one."""
+    c = _ba_wire(3, False)
+    calls = _count_groups(monkeypatch)
+    ba.ba_solve_wire(torch.as_tensor(c["ba_wire"]), [float(v) for v in c["intr"]], 0.0,
+                     K=16, P=256, O=1024, MOPP=16, iters=iters)
+    assert len(calls) == 1 + 3 * iters and sum(calls) == 4 + 7 * iters
+    assert calls[0] == 4 and calls[1:4] == [2, 1, 4]
+
+
+@pytest.mark.parametrize("iters", [20, 5])
+def test_pose_graph_makes_one_launch_per_linearization(monkeypatch, iters):
+    """An ordered pose_graph_solve makes 1 + iters segment_sums calls of two
+    jobs (H and g): 21 calls and 42 jobs at 20 LM iterations."""
+    args = [torch.as_tensor(a) for a in ring_graph(np.random.default_rng(0))[0]]
+    calls = _count_groups(monkeypatch)
+    posegraph.pose_graph_solve(*args, iters=iters)
+    assert calls == [2] * (1 + iters)
 
 
 def _ba_wire(seed, stereo):

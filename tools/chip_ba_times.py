@@ -42,6 +42,31 @@ def timed(fn, reps=5):
     return sorted(times)[len(times) // 2]
 
 
+def ba_problems(cs, settings):
+    """The BA problems timed here, built with the movslam_tpu_torch on
+    sys.path: name -> (problem, LM iterations) for local_ba, gba_drive and
+    gba_caps (see the module docstring)."""
+    from movslam_tpu_torch.config.settings import MONOCULAR
+    from movslam_tpu_torch.core import local_mapping as lm
+    from movslam_tpu_torch.core.system import System
+    from movslam_tpu_torch.io.synthetic import SyntheticStream
+    from movslam_tpu_torch.ops.ba import LM_ITERS
+
+    stream = SyntheticStream(n_points=400, seed=11)
+    system, _, _, _ = cs.drive(System, settings, [stream.frame(k) for k in range(cs.N_FRAMES)], MONOCULAR)
+    system.shutdown()
+    m = system.atlas.current
+    n_local, kfs, mps = system.mapper._select_local_ba(m, lm.MAX_BA_MP)
+    out = {"local_ba": (lm.assemble_ba_problem(kfs, n_local, mps, m.init_kf_id, lm.MAX_OPT_KF + lm.MAX_FIX_KF),
+                        LM_ITERS)}
+    (w_kfs, n_anchor), = lm.gba_windows(m)
+    out["gba_drive"] = (lm.gba_problem(m, w_kfs, n_anchor)[1], 20)
+    tm, _ = cs.top_bucket_map(cs.GBA_TOP_KF, cs.GBA_TOP_MP, cs.GBA_TOP_PER_KF)
+    (w_kfs, n_anchor), = lm.gba_windows(tm)
+    out["gba_caps"] = (lm.gba_problem(tm, w_kfs, n_anchor)[1], 20)
+    return out
+
+
 def main(argv):
     root = os.path.abspath(argv[1]) if len(argv) > 1 else HERE
     import torch
@@ -53,15 +78,14 @@ def main(argv):
     import chip_smoke as cs  # its helpers import the port lazily, from ROOT below
 
     sys.path.insert(0, root)
-    from movslam_tpu_torch.config.settings import IMU_MONOCULAR, MONOCULAR, Settings
+    from movslam_tpu_torch.config.settings import IMU_MONOCULAR, Settings
     from movslam_tpu_torch.core import local_mapping as lm
     from movslam_tpu_torch.core.camera import Pinhole
     from movslam_tpu_torch.core.system import System
     from movslam_tpu_torch.core.verbose import Verbose
-    from movslam_tpu_torch.io.synthetic import SyntheticStream
     from movslam_tpu_torch.io.synthetic_vi import SyntheticVIStream
     from movslam_tpu_torch.ops import kernels
-    from movslam_tpu_torch.ops.ba import LM_ITERS, ba_solve_wire
+    from movslam_tpu_torch.ops.ba import ba_solve_wire
 
     Verbose.level = Verbose.QUIET
     kernels.build()
@@ -78,21 +102,9 @@ def main(argv):
     out = {"root": root, "card": subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True).stdout.strip()}
-    stream = SyntheticStream(n_points=400, seed=11)
-    system, _, _, _ = cs.drive(System, s, [stream.frame(k) for k in range(cs.N_FRAMES)], MONOCULAR)
-    system.shutdown()
-    m = system.atlas.current
-    n_local, kfs, mps = system.mapper._select_local_ba(m, lm.MAX_BA_MP)
-    fn, shape = solve(lm.assemble_ba_problem(kfs, n_local, mps, m.init_kf_id, lm.MAX_OPT_KF + lm.MAX_FIX_KF),
-                      LM_ITERS)
-    out["local_ba"] = {"ms": timed(fn), "K_P_O": shape}
-    (w_kfs, n_anchor), = lm.gba_windows(m)
-    fn, shape = solve(lm.gba_problem(m, w_kfs, n_anchor)[1], 20)
-    out["gba_drive"] = {"ms": timed(fn), "K_P_O": shape}
-    tm, _ = cs.top_bucket_map(cs.GBA_TOP_KF, cs.GBA_TOP_MP, cs.GBA_TOP_PER_KF)
-    (w_kfs, n_anchor), = lm.gba_windows(tm)
-    fn, shape = solve(lm.gba_problem(tm, w_kfs, n_anchor)[1], 20)
-    out["gba_caps"] = {"ms": timed(fn, reps=3), "K_P_O": shape}
+    for name, (prob, iters) in ba_problems(cs, s).items():
+        fn, shape = solve(prob, iters)
+        out[name] = {"ms": timed(fn, reps=3 if name == "gba_caps" else 5), "K_P_O": shape}
 
     vs = Settings()
     vs.camera1 = s.camera1
