@@ -52,7 +52,8 @@ Phases (any failure exits nonzero and prints no result line):
                seed=42): 48 warm-up frames, then 96 timed ones fed to
                System.track_monocular_batch in batches of 8 with flush=False
                and one final flush=True; 16 more frames under torch.profiler
-               for the launches per frame inside a window; 16 more in
+               (host activity included) for the launches per frame inside a
+               window and the host seconds in the port's spans; 16 more in
                localization mode (activate_localization_mode: keyframes, map
                points and the map's change index must not move, >= 12 of the
                16 frames answered); and a per-frame drive of the warm-up and
@@ -191,8 +192,12 @@ MS_STREAMS, MS_TRACKS = 8, 2048  # phase 10: multistream batch
 # solution, apart from points seen from a single keyframe, whose depth
 # nothing holds (PERF.md, Findings). 20 left points 5.5e-2 apart on an H100.
 PAR_ITERS = 40
-PROF_STAGES = ("disp_pack_host", "disp_upload", "disp_commit_snap", "disp_jit_call", "disp_tail",
-               "rep_wire_pull", "rep_pre", "rep_track_fused")
+# Phase 5: the port's spans (movslam_tpu_torch/trace.py) whose host seconds
+# the profiled frames print, summed by name.
+PROF_STAGES = ("movslam.drive.dispatch", "movslam.dispatch.inputs", "movslam.dispatch.snapshot",
+               "movslam.window", "movslam.frame.front_end", "movslam.frame.pose", "movslam.drive.replay",
+               "movslam.replay.wait", "movslam.replay.commit", "movslam.replay.track",
+               "movslam.mapper.keyframe", "movslam.mapper.commit")
 GRAPH_LAUNCHES = 200
 THR = 25.0
 # Post-hoc ATE bound. tests/test_pipeline.py asks < 0.02 m of the reference
@@ -674,7 +679,8 @@ def drive_activities():
 
 def launch_counts(prof, n_frames):
     """CUDA kernel launches per frame (runtime launch calls; kernels the
-    device ran) and device-busy ms per frame, from one profiler trace."""
+    device ran) and device-busy ms per frame, from one profiler trace. The
+    port's spans, which the device's timeline shows too, are no kernels."""
     import torch
 
     launch_names = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel", "cuLaunchKernelEx")
@@ -684,7 +690,7 @@ def launch_counts(prof, n_frames):
         if e.key in launch_names:
             host_launches += e.count
         elif (e.device_type == torch.autograd.DeviceType.CUDA and _device_us(e) > 0
-              and not e.key.startswith(("Memcpy", "Memset"))):
+              and not e.key.startswith(("Memcpy", "Memset", "movslam."))):
             device_kernels += e.count
             busy_us += _device_us(e)
     return host_launches / n_frames, device_kernels / n_frames, busy_us / 1e3 / n_frames
@@ -692,7 +698,7 @@ def launch_counts(prof, n_frames):
 def windowed_phase(System, settings, monocular, SyntheticStream, kernels, card):
     """Phase 5 (see the module docstring). Returns the numbers it printed."""
     import torch
-    from torch.profiler import profile
+    from torch.profiler import ProfilerActivity, profile
 
     from movslam_tpu_torch.multistream_eval import scale_aligned_ate
 
@@ -704,12 +710,11 @@ def windowed_phase(System, settings, monocular, SyntheticStream, kernels, card):
 
     reset_launches(kernels)
     system = System(settings, monocular, device="cuda")
-    system._prof = collections.defaultdict(float)
     poses = []
     for k in range(0, W_WARM, W_BATCH):  # the last warm-up batch drains the pipeline
         poses += system.track_monocular_batch(items[k:k + W_BATCH], flush=k + W_BATCH >= W_WARM)
     torch.cuda.synchronize()
-    warm_counts, warm_prof = collections.Counter(system.counts), dict(system._prof)
+    warm_counts = collections.Counter(system.counts)
     warm_jobs = (system.mapper.n_fused_jobs, system.mapper.n_standalone_jobs)
     t0 = time.perf_counter()
     for k in range(W_WARM, W_WARM + W_TIMED, W_BATCH):
@@ -719,12 +724,13 @@ def windowed_phase(System, settings, monocular, SyntheticStream, kernels, card):
     win_ms = 1e3 * (time.perf_counter() - t0) / W_TIMED
     timed = collections.Counter(system.counts)
     timed.subtract(warm_counts)
-    prof_s = {k: system._prof[k] - warm_prof.get(k, 0.0) for k in PROF_STAGES}
     jobs = (system.mapper.n_fused_jobs - warm_jobs[0], system.mapper.n_standalone_jobs - warm_jobs[1])
 
-    # Launches per frame inside windows: the next frames under the profiler.
+    # Launches per frame inside windows, and the host seconds in the port's
+    # spans: the next frames under the profiler, host activity included so
+    # that the spans are recorded.
     before = collections.Counter(system.counts)
-    with profile(activities=drive_activities()) as prof:
+    with profile(activities=drive_activities() + [ProfilerActivity.CPU]) as prof:
         t0 = time.perf_counter()
         for k in range(W_WARM + W_TIMED, n_tracked, W_BATCH):
             poses += system.track_monocular_batch(items[k:k + W_BATCH], flush=False)
@@ -734,6 +740,10 @@ def windowed_phase(System, settings, monocular, SyntheticStream, kernels, card):
     profiled = collections.Counter(system.counts)
     profiled.subtract(before)
     host, devk, busy = launch_counts(prof, W_PROFILED)
+    prof_s = dict.fromkeys(PROF_STAGES, 0.0)
+    for e in prof.events():  # host side; a span also shows on the device's timeline
+        if e.name in prof_s and e.device_type == torch.autograd.DeviceType.CPU:
+            prof_s[e.name] += e.time_range.elapsed_us() / 1e6
 
     # Localization mode: the map is frozen, tracking goes on.
     m = system.atlas.current
@@ -791,7 +801,7 @@ def windowed_phase(System, settings, monocular, SyntheticStream, kernels, card):
     print(f"windows: timed mapper jobs: {jobs[0]} run by a window and committed from its wire, "
           f"{jobs[1]} standalone; whole drive {system.mapper.n_fused_jobs} / "
           f"{system.mapper.n_standalone_jobs} on {card}", flush=True)
-    print("windows: host seconds by stage over the timed frames: "
+    print(f"windows: host seconds by span over the {W_PROFILED} profiled frames, under the profiler: "
           + ", ".join(f"{k} {prof_s[k]:.3f}" for k in PROF_STAGES) + f" on {card}", flush=True)
     print(f"windows: {W_PROFILED} more frames under the profiler ({profiled['window_frames']} window "
           f"frames, {profiled['per_frame_p']} per-frame): {host:.1f} launch calls/frame, {devk:.1f} "

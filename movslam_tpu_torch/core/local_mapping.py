@@ -44,6 +44,7 @@ from ..ops.mapper_step import (
 )
 from ..ops.triangulate import MAX_PAIRS, triangulate_pairs_np
 from ..ops.vi_ba import vi_ba_solve
+from ..trace import span
 from .inertial import _stack_windows, preintegrate_windows, visual_inertial_init
 from .map import MapPoint, update_normals_batch
 from .map_merge import try_merge
@@ -415,67 +416,70 @@ class LocalMapping:
             self._commit_deferred()
 
     def process_one(self):
-        # The previous keyframe's device work lands first: it was launched
-        # asynchronously and has been overlapping with tracking.
-        self._commit_pending_ba()
-        self._commit_deferred()
-        if (self.current_kf is not None and not self.current_kf.bad
-                and self.current_kf.map_id == self.atlas.current.id):
-            with self.map_lock:
-                self._keyframe_culling(self.atlas.current, self.current_kf)
-        with self.map_lock:
-            if not self.queue:
-                return
-            kf = self.queue.pop(0)
-            self.current_kf = kf
-            m = self.atlas.current
-            self._process_new_keyframe(kf, m)
-            self._map_point_culling(m)
-            deferred = self.defer_mapping and m.n_keyframes() >= self.defer_min_kfs
-            if deferred:
-                tri_job = self._prepare_triangulation(m, cap=TRI_CAP)
-                tri_fits_small = tri_job is None or len(tri_job["cand"]) <= MAPPER_SMALL["C"]
-                if not self.queue:
-                    self._search_in_neighbors(m)
-                ba_job = (
-                    self._prepare_local_ba(m, small_ok=tri_fits_small)
-                    if not self.queue and m.n_keyframes() > 2 else None
-                )
-            else:
-                self._create_new_map_points(m)
-                if not self.queue:
-                    self._search_in_neighbors(m)
-        if deferred:
-            if tri_job is not None or ba_job is not None:
-                t0 = time.perf_counter()
-                size = self._mapper_size_class(tri_job, ba_job)
-                if self.fuse_mapper and size is MAPPER_SMALL:
-                    # Stage for the next window program to run.
-                    tri_w, ba_w = self._build_mapper_wires(tri_job, ba_job, size)
-                    tri_w[0, 30] = 1.0  # the reference's in-program on/off flag
-                    self._staged = {"tri_wire": tri_w, "ba_wire": ba_w, "tri": tri_job,
-                                    "ba": ba_job, "map": m, "size": size}
-                else:
-                    self._dispatch_mapper_step(tri_job, ba_job, m)
-                self.lba_ms.append(1e3 * (time.perf_counter() - t0))
-                self.lba_count += 1
-        elif not self.queue and m.n_keyframes() > 2:
-            t0 = time.perf_counter()
-            if self.imu_buffer is not None and m.imu_initialized:
-                self._local_ba_vi(m)  # joint visual-inertial, committed at once
-            else:
-                self._local_ba(m)  # launched; committed at the next keyframe
-            self.lba_ms.append(1e3 * (time.perf_counter() - t0))
-            self.lba_count += 1
-        if self.imu_buffer is not None:
-            self._staged_vi_init(m)
-        # Multi-map welding: when tracking loss spawned a new map and enough
-        # tracks are shared, merge it back (Sim3 + pose-graph relaxation).
-        if len(self.atlas.maps) > 1 and m.n_keyframes() >= 5 and m.n_keyframes() % 5 == 0:
+        with span("mapper.keyframe"):
+            # The previous keyframe's device work lands first: it was launched
+            # asynchronously and has been overlapping with tracking.
+            self._commit_pending_ba()
             self._commit_deferred()
+            if (self.current_kf is not None and not self.current_kf.bad
+                    and self.current_kf.map_id == self.atlas.current.id):
+                with self.map_lock:
+                    self._keyframe_culling(self.atlas.current, self.current_kf)
             with self.map_lock:
-                self._commit_pending_ba()
-                try_merge(self.atlas, device=self.device)
+                if not self.queue:
+                    return
+                kf = self.queue.pop(0)
+                self.current_kf = kf
+                m = self.atlas.current
+                self._process_new_keyframe(kf, m)
+                self._map_point_culling(m)
+                deferred = self.defer_mapping and m.n_keyframes() >= self.defer_min_kfs
+                if deferred:
+                    tri_job = self._prepare_triangulation(m, cap=TRI_CAP)
+                    tri_fits_small = tri_job is None or len(tri_job["cand"]) <= MAPPER_SMALL["C"]
+                    if not self.queue:
+                        self._search_in_neighbors(m)
+                    ba_job = (
+                        self._prepare_local_ba(m, small_ok=tri_fits_small)
+                        if not self.queue and m.n_keyframes() > 2 else None
+                    )
+                else:
+                    self._create_new_map_points(m)
+                    if not self.queue:
+                        self._search_in_neighbors(m)
+            if deferred:
+                if tri_job is not None or ba_job is not None:
+                    with span("mapper.local_ba"):
+                        t0 = time.perf_counter()
+                        size = self._mapper_size_class(tri_job, ba_job)
+                        if self.fuse_mapper and size is MAPPER_SMALL:
+                            # Stage for the next window program to run.
+                            tri_w, ba_w = self._build_mapper_wires(tri_job, ba_job, size)
+                            tri_w[0, 30] = 1.0  # the reference's in-program on/off flag
+                            self._staged = {"tri_wire": tri_w, "ba_wire": ba_w, "tri": tri_job,
+                                            "ba": ba_job, "map": m, "size": size}
+                        else:
+                            self._dispatch_mapper_step(tri_job, ba_job, m)
+                        self.lba_ms.append(1e3 * (time.perf_counter() - t0))
+                    self.lba_count += 1
+            elif not self.queue and m.n_keyframes() > 2:
+                with span("mapper.local_ba"):
+                    t0 = time.perf_counter()
+                    if self.imu_buffer is not None and m.imu_initialized:
+                        self._local_ba_vi(m)  # joint visual-inertial, committed at once
+                    else:
+                        self._local_ba(m)  # launched; committed at the next keyframe
+                    self.lba_ms.append(1e3 * (time.perf_counter() - t0))
+                self.lba_count += 1
+            if self.imu_buffer is not None:
+                self._staged_vi_init(m)
+            # Multi-map welding: when tracking loss spawned a new map and enough
+            # tracks are shared, merge it back (Sim3 + pose-graph relaxation).
+            if len(self.atlas.maps) > 1 and m.n_keyframes() >= 5 and m.n_keyframes() % 5 == 0:
+                self._commit_deferred()
+                with self.map_lock:
+                    self._commit_pending_ba()
+                    try_merge(self.atlas, device=self.device)
 
     def _staged_vi_init(self, m):
         """The gravity/scale init, staged like ORB-SLAM3's repeated inertial
@@ -951,14 +955,15 @@ class LocalMapping:
         """Launch this keyframe's mapper job standalone; its result is pulled
         and committed at the NEXT keyframe (process_one -> _commit_deferred),
         and its patch bundles stay on the device for the next window."""
-        size = self._mapper_size_class(tri_job, ba_job)
-        tri_wire, ba_wire = self._build_mapper_wires(tri_job, ba_job, size)
-        cam = self.camera
-        out = mapper_step_wire(
-            torch.as_tensor(tri_wire, device=self.device), torch.as_tensor(ba_wire, device=self.device),
-            [cam.fx, cam.fy, cam.cx, cam.cy], self.bf,
-            C=size["C"], K=size["K"], P=size["P"], O=size["O"],
-        )
+        with span("mapper.local_ba"):
+            size = self._mapper_size_class(tri_job, ba_job)
+            tri_wire, ba_wire = self._build_mapper_wires(tri_job, ba_job, size)
+            cam = self.camera
+            out = mapper_step_wire(
+                torch.as_tensor(tri_wire, device=self.device), torch.as_tensor(ba_wire, device=self.device),
+                [cam.fx, cam.fy, cam.cx, cam.cy], self.bf,
+                C=size["C"], K=size["K"], P=size["P"], O=size["O"],
+            )
         self.n_standalone_jobs += 1
         self._deferred = {"out": out, "done": self._record_done(out["wire"]), "tri": tri_job,
                           "ba": ba_job, "map": m, "size": size}
@@ -999,9 +1004,10 @@ class LocalMapping:
         """Commit a job the window program ran, from the mapper section that
         trails the window's wire (the writeback of _commit_deferred on host
         arrays)."""
-        st["committed"] = True
-        self.n_fused_jobs += 1
-        self._commit_mapper_result(st, X, out_kf, out_mp, out_obs)
+        with span("mapper.commit"):
+            st["committed"] = True
+            self.n_fused_jobs += 1
+            self._commit_mapper_result(st, X, out_kf, out_mp, out_obs)
 
     def _commit_mapper_result(self, job, X, out_kf, out_mp, out_obs):
         m = job["map"]
@@ -1039,22 +1045,24 @@ class LocalMapping:
         triangulations, then write back the BA solution. When blocking, a
         staged job is first launched standalone (it must land before graph
         work that assumes it did)."""
-        if blocking and self._staged is not None:
-            self._flush_staged()
-        d = self._take("_deferred", lambda d: blocking or d["done"] is None or d["done"].query())
-        if d is None:
-            return
-        d["committed"] = True
-        size = d["size"]
-        # The pull waits for the device, outside the map lock.
-        res = split_mapper_wire(d["out"]["wire"], C=size["C"], K=size["K"], P=size["P"], O=size["O"])
-        self._commit_mapper_result(d, *res)
+        with span("mapper.commit"):
+            if blocking and self._staged is not None:
+                self._flush_staged()
+            d = self._take("_deferred", lambda d: blocking or d["done"] is None or d["done"].query())
+            if d is None:
+                return
+            d["committed"] = True
+            size = d["size"]
+            # The pull waits for the device, outside the map lock.
+            res = split_mapper_wire(d["out"]["wire"], C=size["C"], K=size["K"], P=size["P"], O=size["O"])
+            self._commit_mapper_result(d, *res)
 
     def _commit_pending_ba(self):
-        pending = self._take("_pending_ba")
-        if pending is None or pending["map"] is not self.atlas.current:
-            return  # nothing launched, or the map was reset since
-        res = split_ba_wire(pending["res"].cpu().numpy(), *pending["shape"])  # waits here
-        with self.map_lock:
-            commit_ba_result(res, pending["obs_meta"], pending["kfs"], pending["mps"],
-                             pending["kf_fixed"], pending["map"])
+        with span("mapper.commit"):
+            pending = self._take("_pending_ba")
+            if pending is None or pending["map"] is not self.atlas.current:
+                return  # nothing launched, or the map was reset since
+            res = split_ba_wire(pending["res"].cpu().numpy(), *pending["shape"])  # waits here
+            with self.map_lock:
+                commit_ba_result(res, pending["obs_meta"], pending["kfs"], pending["mps"],
+                                 pending["kf_fixed"], pending["map"])

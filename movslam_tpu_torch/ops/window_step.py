@@ -27,6 +27,7 @@ from __future__ import annotations
 
 import torch
 
+from ..trace import span
 from .frame_step import _frame_program_body, pack_bits_i32, prep_snapshot
 from .mapper_step import MAPPER_SMALL, mapper_body
 
@@ -101,15 +102,17 @@ def tracked_window_step(
 
     mwire = None
     if mtri is not None:
-        mout = mapper_body(mtri, mba, intr, dist_pack[9] if has_stereo else 0.0,
-                           K=MAPPER_SMALL["K"], P=MAPPER_SMALL["P"], O=MAPPER_SMALL["O"])
+        with span("window.mapper"):
+            mout = mapper_body(mtri, mba, intr, dist_pack[9] if has_stereo else 0.0,
+                               K=MAPPER_SMALL["K"], P=MAPPER_SMALL["P"], O=MAPPER_SMALL["O"])
         mwire = mout["wire"]
         patch_tri, patch_mp = mout["patch_tri"], mout["patch_mp"]
 
     # Device-side snapshot patch, then ONE sort for the whole window.
-    if patch_tri is not None:
-        snap_fused = _apply_patch(snap_fused, patch_tri, patch_mp, patch_meta)
-    snap = prep_snapshot(snap_fused)
+    with span("window.patch"):
+        if patch_tri is not None:
+            snap_fused = _apply_patch(snap_fused, patch_tri, patch_mp, patch_meta)
+        snap = prep_snapshot(snap_fused)
 
     l_R = pose_pack[0:9].reshape(3, 3)
     l_t = pose_pack[9:12]
