@@ -1,4 +1,5 @@
-"""The windowed drive: System.track_monocular_batch over batches of the
+"""The windowed drive: the System's batch entry (track_stereo_batch on a
+STEREO system, track_monocular_batch otherwise) over batches of the
 recorded sequence, flush=False, so the port keeps `pipeline_depth` windows
 of `window` frames in flight across calls; the final flush, which resolves
 every frame fed, closes the measured window. The offline mapping of a
@@ -8,6 +9,8 @@ Warm-up (traffic mix `warmup`): `frames` frames in the same batches, the
 last batch flushed.
 """
 
+from harness import port
+
 
 def _setup(system, mix):
     system.window = int(mix["window"])
@@ -15,8 +18,9 @@ def _setup(system, mix):
 
 
 def _batch(system, items, flush, span):
-    with span("track_monocular_batch"):
-        return system.track_monocular_batch(items, flush=flush)
+    entry = port.batch_entry(system)
+    with span(entry):
+        return getattr(system, entry)(items, flush=flush)
 
 
 def warm_up(system, feed, mix, span):

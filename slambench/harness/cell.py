@@ -129,6 +129,8 @@ def run(cell, seed, seconds, trace, t_start, device="cuda", plant=None):
         del tr["profile"]
         log(f"trace: reduced in {clock() - t2:.3f} s; {record['launches']} kernel launches, "
             f"device busy {record['busy_s']:.6f} s of {window_s:.6f} s")
+        for name, row in sorted(record["spans"].items(), key=lambda kv: -kv[1].get("host_s", 0.0)):
+            log(f"span: {name} " + " ".join(f"{k} {v!r}" for k, v in row.items()))
     del system, feed, tr
     gc.collect()
     if cuda:

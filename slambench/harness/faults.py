@@ -1,8 +1,8 @@
 """Faults planted under the timed path, and the control, for reading the
 limits of the output check (proof.py) and for the tests that see the check
 fail. Each is a plant(system, gt) for harness.cell.run: it replaces the
-System's batch entry, track_monocular_batch, on that one object after the
-warm-up.
+System's batch entry for its sensor (port.batch_entry: track_stereo_batch
+or track_monocular_batch) on that one object after the warm-up.
 
   frozen    a step that returns its state unchanged: every call answers
             the last pose of the warm-up and runs nothing
@@ -24,6 +24,11 @@ which:
             after are answered in the frame of a new map, with its origin at
             the camera of the frame where tracking was lost and one tenth of
             the first map's scale (VISUAL_SCALE)
+  rescale   "metric scale" (a visual-inertial or stereo rig): the port runs
+            underneath, and every frame is answered with the ground truth's
+            pose at RESCALE times its scale, every camera centre moved
+            away from the world's origin by that factor: a trajectory
+            exact up to its scale (`ate_rms_pct` ~0, `scale_err_pct` ~30)
 """
 from __future__ import annotations
 
@@ -31,16 +36,19 @@ import collections
 import functools
 import time
 
+from . import port
+
 
 def _plant(system, keep, answer):
     """Route the batch entry of `system` so that frame k (counted from the
     first frame after the warm-up) goes to the port only where keep(k), and
     is answered answer(k, the port's pose, or None where not handed)."""
-    batch = system.track_monocular_batch
+    entry = port.batch_entry(system)
+    batch = getattr(system, entry)
     counter = [system.image_count]
     queue = collections.deque()  # (frame, handed to the port) in stream order
 
-    def track_monocular_batch(items, flush=True):
+    def planted(items, flush=True):
         handed = []
         for it in items:
             queue.append((counter[0], keep(counter[0])))
@@ -58,7 +66,7 @@ def _plant(system, keep, answer):
             queue.popleft()
         return out
 
-    system.track_monocular_batch = track_monocular_batch
+    setattr(system, entry, planted)
 
 
 def frozen(system, gt):
@@ -105,8 +113,19 @@ def reinit(system, gt, seconds):
     _plant(system, lambda k: True, answer)
 
 
+# The control's answers' scale against the truth's.
+RESCALE = 1.3
+
+
+def rescale(system, gt, seconds):
+    def answer(k, p):
+        R, t = gt[k]
+        return R, t * RESCALE
+    _plant(system, lambda k: True, answer)
+
+
 FAULTS = {"frozen": frozen, "halved": halved, "altered": altered}
-CONTROLS = {"reinit": reinit}
+CONTROLS = {"reinit": reinit, "rescale": rescale}
 
 
 def plant(cell, name, seconds):

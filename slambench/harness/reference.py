@@ -13,6 +13,11 @@ those answers is judged:
                    tracker lost (exact: 0)
   ate_rms_pct      the root mean square of the camera-centre errors, as %
                    of the span of the ground-truth centres in the window
+  scale_err_pct    100 |s - 1|, s the scale of the answered path against the
+                   true one (the inverse of the fitted similarity's scale):
+                   what a rig that promises metric scale (an IMU, a stereo
+                   baseline) is judged by; a monocular cell's limits leave
+                   it out, as its scale is free
 """
 from __future__ import annotations
 
@@ -48,7 +53,7 @@ def judge(gt, answers, window, lost=()):
     ok = {k: answers[k] for k in window if answers.get(k) is not None and k not in lost}
     out = {"unanswered": len(window) - len(ok)}
     if len(ok) < 3:
-        out["ate_rms_pct"] = float("inf")
+        out["ate_rms_pct"] = out["scale_err_pct"] = float("inf")
         return out
     g = np.array([center(*gt[k]) for k in ok])
     e = np.array([center(*p) for p in ok.values()])
@@ -57,6 +62,7 @@ def judge(gt, answers, window, lost=()):
     aligned = s * e @ R.T + t
     errs = np.linalg.norm(g - aligned, axis=1)
     out["ate_rms_pct"] = 100.0 * float(np.sqrt(np.mean(errs ** 2))) / span
+    out["scale_err_pct"] = 100.0 * abs(1.0 / s - 1.0) if s > 0 else float("inf")
     return out
 
 

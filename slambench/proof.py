@@ -27,20 +27,23 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 def _recording(plant, store):
     """`plant`, with the port's own answers kept in store["answers"] and the
     ground truth in store["gt"]."""
+    from harness import port
+
     def planted(system, gt):
-        batch = system.track_monocular_batch
+        entry = port.batch_entry(system)
+        batch = getattr(system, entry)
         handed = collections.deque()
         answers = store["answers"] = {}
         store["gt"] = gt
 
-        def track_monocular_batch(items, flush=True):
+        def recorded(items, flush=True):
             handed.extend(it[1].frame_no for it in items)
             out = batch(items, flush=flush)
             for pose in out:
                 answers[handed.popleft()] = pose
             return out
 
-        system.track_monocular_batch = track_monocular_batch
+        setattr(system, entry, recorded)
         plant(system, gt)
     return planted
 

@@ -51,8 +51,8 @@ def test_union_of_device_intervals():
 
 
 class _Event:
-    def __init__(self, name, start, end, device, kind, thread=1, annotation=False):
-        self._v = name, start, end, device, kind, thread, annotation
+    def __init__(self, name, start, end, device, kind, thread=1, annotation=False, corr=0):
+        self._v = name, start, end, device, kind, thread, annotation, corr
 
     def name(self):
         return self._v[0]
@@ -76,6 +76,32 @@ class _Event:
     def is_user_annotation(self):
         return self._v[6]
 
+    def correlation_id(self):
+        return self._v[7]
+
+
+class _OldEvent:
+    """An event of a torch without activity_type and is_user_annotation (the
+    card's 2.11 takes _activity's fallback)."""
+
+    def __init__(self, event):
+        self._e = event
+
+    def __getattr__(self, name):
+        if name in ("activity_type", "is_user_annotation"):
+            raise AttributeError(name)
+        return getattr(self._e, name)
+
+
+def _profile(ev):
+    class P:
+        class profiler:
+            class kineto_results:
+                @staticmethod
+                def events():
+                    return ev
+    return P
+
 
 def test_reduce_busy_kernels_and_idle_labels():
     ev = [
@@ -89,14 +115,7 @@ def test_reduce_busy_kernels_and_idle_labels():
         _Event("slambench.track_monocular", 150, 450, True, "gpu_user_annotation"),
     ]
 
-    class P:
-        class profiler:
-            class kineto_results:
-                @staticmethod
-                def events():
-                    return ev
-
-    out = trace.reduce(P)
+    out = trace.reduce(_profile(ev))
     assert out["kernels"] == {"segment_sums_kernel": (1, 300e-9), "ampere_sgemm": (1, 100e-9)}
     assert out["launches"] == 2 and out["busy_s"] == pytest.approx(410e-9)
     gaps = dict(out["breakdown"]["idle_gaps"])
@@ -131,3 +150,128 @@ def test_metric_readers():
     least = roofline.least_seconds(*roofline.score_candidates_work(2048, 4096))
     assert read["score_candidates_roofline"] == pytest.approx(100 * least / 3.5e-6)
     assert read["segment_sums_roofline"] is None
+
+
+def _window_events(port_spans=True):
+    """One benchmark call on thread 1 with the port's spans inside it, kernels
+    launched under them (one by a graph launch), and a second thread."""
+    def host(name, a, b, kind="cpu_op", thread=1, corr=0):
+        return _Event(name, a, b, False, kind, thread=thread, annotation=kind == "user_annotation", corr=corr)
+
+    def span(name, a, b, thread=1):
+        rows = [host(name, a, b, "user_annotation", thread)]
+        return rows + [_Event(name, a + 1, b - 1, True, "gpu_user_annotation", annotation=True)]
+
+    def kernel(name, a, b, corr):
+        return _Event(name, a, b, True, "kernel", corr=corr)
+
+    ev = span("slambench.track_monocular_batch", 0, 1000)
+    ev += [host("cudaLaunchKernel", 30, 35, "cuda_runtime", corr=11),
+           host("cudaLaunchKernel", 150, 155, "cuda_runtime", corr=12),
+           host("cudaGraphLaunch", 200, 210, "cuda_runtime", corr=13),
+           host("cudaLaunchKernel", 450, 452, "cuda_runtime", corr=14),
+           host("cudaLaunchKernel", 950, 952, "cuda_runtime", corr=15),
+           host("cudaLaunchKernel", 120, 125, "cuda_runtime", thread=2, corr=17),
+           # A host operator whose id is kernel 12's: an operator's id is not a launch's.
+           host("aten::mm", 460, 470, corr=12),
+           host("aten::item", 610, 690)]
+    ev += [kernel("front_kernel", 40, 60, 11), kernel("pose_kernel", 160, 260, 12),
+           kernel("graph_kernel", 300, 320, 13), kernel("graph_kernel", 320, 330, 13),
+           kernel("mapper_kernel", 455, 475, 14), kernel("late_kernel", 960, 970, 15),
+           kernel("unlaunched_kernel", 980, 990, 99), kernel("thread_kernel", 130, 140, 17),
+           _Event("Memcpy DtoH (Device -> Pinned)", 690, 700, True, "gpu_memcpy", corr=16)]
+    if port_spans:
+        for name, a, b in [("window", 10, 600), ("frame.front_end", 20, 100), ("frame.pose", 100, 400),
+                           ("window.mapper", 400, 500), ("drive.replay", 600, 900), ("replay.wait", 610, 700),
+                           ("replay.track", 700, 800), ("mapper.keyframe", 720, 780),
+                           ("mapper.local_ba", 730, 760), ("mapper.commit", 800, 850)]:
+            ev += span("movslam." + name, a, b)
+        ev += span("movslam.mapper.keyframe", 100, 200, thread=2)
+    return ev
+
+
+def test_reduce_keeps_its_old_keys_beside_the_port_spans():
+    with_spans = trace.reduce(_profile(_window_events()))
+    without = trace.reduce(_profile(_window_events(port_spans=False)))
+    for key in ("kernels", "launches", "busy_s"):
+        assert with_spans[key] == without[key], key
+    assert with_spans["launches"] == 8 and "movslam.window" not in with_spans["kernels"]
+    assert with_spans["breakdown"]["device_ops"] == without["breakdown"]["device_ops"]
+    gaps, gaps0 = (dict(o["breakdown"]["idle_gaps"]) for o in (with_spans, without))
+    assert sum(gaps.values()) == pytest.approx(sum(gaps0.values()))
+    assert all(k.startswith("track_monocular_batch: ") for k in gaps0)
+    assert gaps["movslam.window: python"] == pytest.approx((690 - 475) * 1e-9)  # the gap's middle, 582
+    assert gaps["movslam.mapper.commit: python"] == pytest.approx((960 - 700) * 1e-9)
+    assert without["spans"] == {"outside": {"launches": 8, "device_s": pytest.approx(200e-9)}}
+
+
+def test_span_rows_host_times():
+    rows = trace.reduce(_profile(_window_events()))["spans"]
+    ns = 1e-9
+    assert rows["movslam.window"]["host_s"] == pytest.approx(590 * ns)
+    assert rows["movslam.window"]["self_s"] == pytest.approx((590 - 80 - 300 - 100) * ns)
+    assert rows["movslam.window.mapper"]["outer_s"] == 0.0  # inside movslam.window
+    assert rows["movslam.drive.replay"]["self_s"] == pytest.approx((300 - 90 - 100 - 50) * ns)
+    assert rows["movslam.replay.track"]["self_s"] == pytest.approx(40 * ns)
+    assert rows["movslam.mapper.keyframe"]["n"] == 1  # thread 2's is not the drive's
+    assert rows["movslam.mapper.keyframe"]["self_s"] == pytest.approx(30 * ns)
+    assert rows["movslam.mapper.local_ba"]["host_s"] == pytest.approx(30 * ns)
+    assert rows["movslam.mapper.local_ba"]["outer_s"] == 0.0
+    assert rows["movslam.mapper.commit"]["outer_s"] == pytest.approx(50 * ns)
+
+
+def test_span_rows_match_kernels_by_their_own_correlation_id():
+    """Each kernel lands under the spans open at the call that launched it;
+    a graph's kernels under the span open at its cudaGraphLaunch; kernels of
+    another thread's calls or of no call found land in `outside`."""
+    rows = trace.reduce(_profile(_window_events()))["spans"]
+    launches = {name: row["launches"] for name, row in rows.items()}
+    assert launches == {
+        "movslam.window": 5, "movslam.frame.front_end": 1, "movslam.frame.pose": 3, "movslam.window.mapper": 1,
+        "movslam.drive.replay": 0, "movslam.replay.wait": 0, "movslam.replay.track": 0,
+        "movslam.mapper.keyframe": 0, "movslam.mapper.local_ba": 0, "movslam.mapper.commit": 0, "outside": 3}
+    assert rows["movslam.frame.pose"]["device_s"] == pytest.approx(130e-9)
+    assert rows["movslam.window"]["device_s"] == pytest.approx(170e-9)
+    assert rows["outside"]["device_s"] == pytest.approx(30e-9)
+
+
+def test_span_rows_count_a_name_nested_in_itself_once():
+    rows = trace._span_rows([(0, 100, "movslam.window"), (10, 50, "movslam.window")],
+                            [(20, 30, "k", "kernel", 1)], {1: 15})
+    assert rows["movslam.window"]["n"] == 2
+    assert rows["movslam.window"]["host_s"] == rows["movslam.window"]["self_s"] == pytest.approx(100e-9)
+    assert rows["movslam.window"]["launches"] == 1 and rows["outside"]["launches"] == 0
+
+
+def test_fallback_counts_span_rows_as_annotations_not_kernels():
+    """Without activity_type and is_user_annotation a port span's device row
+    is no kernel, and a cu* host row is a launch call: the same reduction."""
+    new = trace.reduce(_profile(_window_events()))
+    old = trace.reduce(_profile([_OldEvent(e) for e in _window_events()]))
+    assert old["kernels"] == new["kernels"] and old["launches"] == new["launches"] == 8
+    assert old["busy_s"] == new["busy_s"] and old["spans"] == new["spans"]
+
+
+def test_span_metric_readers():
+    record = trace.reduce(_profile(_window_events()))
+    record.pop("breakdown")
+    record.update(frames=2, window_s=1e-6)
+    read = {m: spec.metric_reader(m)(record) for m in SPAN_METRICS}
+    assert read["front_end_ms_per_frame"] == pytest.approx(1e3 * 80e-9 / 2)
+    assert read["front_end_launches_per_frame"] == 0.5
+    assert read["pose_ms_per_frame"] == pytest.approx(1e3 * 300e-9 / 2)
+    assert read["pose_launches_per_frame"] == 1.5
+    assert read["replay_track_ms_per_frame"] == pytest.approx(1e3 * 40e-9 / 2)
+    assert read["mapper_ms_per_frame"] == pytest.approx(1e3 * (60 + 50) * 1e-9 / 2)
+    assert read["wire_wait_share"] == pytest.approx(90e-9 / 1e-6)
+
+
+SPAN_METRICS = ("front_end_ms_per_frame", "front_end_launches_per_frame", "pose_ms_per_frame",
+                "pose_launches_per_frame", "replay_track_ms_per_frame", "mapper_ms_per_frame", "wire_wait_share")
+
+
+@pytest.mark.parametrize("metric", SPAN_METRICS)
+def test_span_metric_reads_nothing_without_its_span(metric):
+    record = trace.reduce(_profile(_window_events(port_spans=False)))
+    record.update(frames=2, window_s=1.0)
+    assert spec.metric_reader(metric)(record) is None
