@@ -12,13 +12,19 @@ ApplyScaledRotation:
     R_cw <- R_cw @ Rwg,   t_cw <- s * t_cw,   X <- s * Rwg^T X
 
 after which gravity is -z in the world frame and the map is metric.
+
+`windowed=True` is the windowed drive's form: the solve starts where
+ORB-SLAM3's InitializeIMU does (ops/imu.gravity_scale_start) instead of at
+the reference's gravity along the map's -z and scale 1, and the windows are
+preintegrated by ops/imu.preintegrate_scan.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
-from ..ops.imu import inertial_gs_optimize, preintegrate
+from ..ops.imu import gravity_scale_start, inertial_gs_optimize, preintegrate, preintegrate_scan
+from ..trace import span
 from .verbose import Verbose
 
 MAX_SAMPLES_PER_WINDOW = 512  # padding cap for one KF-to-KF interval
@@ -55,14 +61,19 @@ def _stack_windows(kfs, buf, cap=MAX_SAMPLES_PER_WINDOW):
     """Preintegration inputs for the K-1 consecutive-KF windows, padded:
     gyro (K-1, cap, 3), acc (K-1, cap, 3), dts (K-1, cap), valid (K-1, cap),
     w_ok (K-1,)."""
-    K = len(kfs)
-    gyro = np.zeros((K - 1, cap, 3), np.float32)
-    acc = np.zeros((K - 1, cap, 3), np.float32)
-    dts = np.zeros((K - 1, cap), np.float32)
-    valid = np.zeros((K - 1, cap), bool)
-    w_ok = np.zeros(K - 1, bool)
-    for k in range(K - 1):
-        s = buf.window(kfs[k].frame_id, kfs[k + 1].frame_id)
+    return _stack_intervals(list(zip(kfs[:-1], kfs[1:])), buf, cap)
+
+
+def _stack_intervals(pairs, buf, cap=MAX_SAMPLES_PER_WINDOW):
+    """_stack_windows over the keyframe intervals (a, b] of `pairs`."""
+    E = len(pairs)
+    gyro = np.zeros((E, cap, 3), np.float32)
+    acc = np.zeros((E, cap, 3), np.float32)
+    dts = np.zeros((E, cap), np.float32)
+    valid = np.zeros((E, cap), bool)
+    w_ok = np.zeros(E, bool)
+    for k, (a, b) in enumerate(pairs):
+        s = buf.window(a.frame_id, b.frame_id)
         n = min(len(s), cap)
         if n == 0:
             continue
@@ -74,24 +85,28 @@ def _stack_windows(kfs, buf, cap=MAX_SAMPLES_PER_WINDOW):
     return gyro, acc, dts, valid, w_ok
 
 
-def preintegrate_windows(gyro, acc, dts, valid, bias_g, bias_a, device, **noise):
-    """preintegrate on `device` over host arrays from _stack_windows. The loop
-    stops after the last sample of the longest window: every later step is
-    padding in every window. Returns (pres, steps run)."""
+def preintegrate_windows(gyro, acc, dts, valid, bias_g, bias_a, device, integrate=preintegrate, **noise):
+    """preintegrate (or ops/imu.preintegrate_scan, `integrate`) on `device`
+    over host arrays from _stack_windows. The loop stops after the last
+    sample of the longest window: every later step is padding in every
+    window. Returns (pres, steps run)."""
     used = np.flatnonzero(valid.any(0))
     steps = int(used[-1]) + 1 if len(used) else 0
     dev = lambda x: torch.as_tensor(x, device=device)  # noqa: E731
-    pres = preintegrate(dev(gyro), dev(acc), dev(dts), dev(valid), dev(bias_g), dev(bias_a),
-                        steps=steps, **noise)
+    with span("imu.preintegrate"):
+        pres = integrate(dev(gyro), dev(acc), dev(dts), dev(valid), dev(bias_g), dev(bias_a),
+                         steps=steps, **noise)
     return pres, steps
 
 
 def visual_inertial_init(m, kfs, buf, *, device, noise_gyro=1.7e-4, noise_acc=2e-3, map_lock=None,
-                         min_windows=5):
+                         min_windows=5, windowed=False):
     """Gravity + scale initialization over the keyframe chain. Returns the
-    solve (a dict of numpy arrays, with the preintegration steps run), or
-    None when there is not enough IMU evidence, after applying the similarity
-    to the map and stamping per-KF velocities and shared biases."""
+    solve (a dict of numpy arrays, with the preintegration steps run and the
+    windows integrated), or None when there is not enough IMU evidence,
+    after applying the similarity to the map and stamping per-KF velocities
+    and shared biases. windowed: the windowed drive's form (module
+    docstring)."""
     kfs = sorted((kf for kf in kfs if not kf.bad), key=lambda k: k.id)
     kfs = kfs[-MAX_WINDOWS - 1:]
     if len(kfs) < min_windows + 1:
@@ -102,6 +117,7 @@ def visual_inertial_init(m, kfs, buf, *, device, noise_gyro=1.7e-4, noise_acc=2e
 
     zero = np.zeros(3, np.float32)
     pres, steps = preintegrate_windows(gyro, acc, dts, valid, zero, zero, device,
+                                       integrate=preintegrate_scan if windowed else preintegrate,
                                        sigma_g=noise_gyro, sigma_a=noise_acc)
     # World-from-body states (camera == body: extrinsics, if any, fold into
     # the sample stream upstream).
@@ -115,10 +131,17 @@ def visual_inertial_init(m, kfs, buf, *, device, noise_gyro=1.7e-4, noise_acc=2e
     v0[-1] = v0[-2]
 
     dev = lambda x: torch.as_tensor(x, device=device)  # noqa: E731
-    res = inertial_gs_optimize(pres, dev(Rs.astype(np.float32)), dev(ps.astype(np.float32)), dev(v0),
-                               dev(zero), dev(zero), dev(w_ok))
+    Rs_d, ps_d, v0_d, ok_d = dev(Rs.astype(np.float32)), dev(ps.astype(np.float32)), dev(v0), dev(w_ok)
+    start = {}
+    if windowed:
+        theta0, log_s0, v_lin = gravity_scale_start(pres, Rs_d, ps_d, ok_d)
+        start = {"theta0": theta0, "log_s0": log_s0}
+        if log_s0 is not None:
+            v0_d = v_lin
+    res = inertial_gs_optimize(pres, Rs_d, ps_d, v0_d, dev(zero), dev(zero), ok_d, **start)
     res = {k: v.cpu().numpy() for k, v in res.items()}
     res["preintegrate_steps"] = steps
+    res["windows"] = int(w_ok.sum())
     s = float(res["scale"])
     Rwg = np.asarray(res["Rwg"], np.float64)
     if not np.isfinite(s) or s <= 1e-3 or s > 1e3:

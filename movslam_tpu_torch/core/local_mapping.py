@@ -21,9 +21,19 @@ mutation happens under `map_lock`, device waits outside it.
 
 Visual-inertial (`imu_buffer` set by System for IMU_MONOCULAR): at 6, 12 and
 24 keyframes (`vi_min_kfs` * 2^stage) the gravity/scale init
-(core/inertial.py) re-expresses the map metric; once it has run, the
-per-frame mode's local BA is the joint visual-inertial one (`_local_ba_vi`,
-ops/vi_ba.py) over the temporal keyframe chain, committed at once.
+(core/inertial.py) re-expresses the map metric; once it has run, the local
+BA is the joint visual-inertial one (`_local_ba_vi`, ops/vi_ba.py) over the
+temporal keyframe chain, committed at once. The deferred mode departs from
+the reference (whose windowed drive never reaches the VI BA) in three ways,
+which the per-frame mode does not take, so that it stays comparable with
+the reference: its mapper job keeps only the triangulation and the VI BA
+runs beside it at every keyframe, on preintegrations cached per keyframe
+interval (`_close_interval`, ops/imu.preintegrate_scan) with closed-form
+inertial Jacobians and ORB-SLAM3's iteration count; the init starts from
+ORB-SLAM3's gravity and scale (inertial.visual_inertial_init's windowed
+form); and each stage re-expresses the tracker with the map
+(`tracking`, set by System: Tracking.apply_scaled_rotation). `counts`
+(System.counts, set by System) counts what the VI path did.
 
 When tracking loss has spawned a new map, every fifth keyframe of it tries
 to weld it back into an older map (core/map_merge.py). Global BA
@@ -31,6 +41,7 @@ to weld it back into an older map (core/map_merge.py). Global BA
 """
 from __future__ import annotations
 
+import collections
 import contextlib
 import threading
 import time
@@ -38,14 +49,15 @@ import time
 import numpy as np
 import torch
 
-from ..ops.ba import ba_solve_wire, build_obs_by_point
+from ..ops.ba import LM_ITERS, ba_solve_wire, build_obs_by_point
 from ..ops.mapper_step import (
     BA_MOPP, MAPPER_BIG, MAPPER_SMALL, TRI_CAP, mapper_step_wire, split_mapper_wire,
 )
+from ..ops.imu import preintegrate_scan
 from ..ops.triangulate import MAX_PAIRS, triangulate_pairs_np
 from ..ops.vi_ba import vi_ba_solve
 from ..trace import span
-from .inertial import _stack_windows, preintegrate_windows, visual_inertial_init
+from .inertial import _stack_intervals, _stack_windows, preintegrate_windows, visual_inertial_init
 from .map import MapPoint, update_normals_batch
 from .map_merge import try_merge
 from .matcher import FuseCandidates, fuse, search_for_triangulation
@@ -60,6 +72,16 @@ MAX_BA_OBS = 16384
 MOPP = 16
 CHI2_PRUNE = 5.0  # Optimizer.cc delta
 REPROJ_TRI = 5.0  # CreateNewMapPoints reprojection gate
+# A cached keyframe interval is integrated again once the gyro bias has moved
+# this far (rad/s) from the bias it was integrated at: ORB-SLAM3's
+# Optimizer::InertialOptimization calls Preintegrated::Reintegrate past
+# 0.01. Below it the first-order bias correction stands in; it is exact in
+# the accelerometer bias, which enters the deltas linearly.
+REINTEGRATE_GYRO_BIAS = 0.01
+# The deferred mode's VI local BA takes ORB-SLAM3's LM iteration count
+# (Optimizer::LocalInertialBA's bLarge): 4 iterations where the tracker
+# matched more than 75 inliers at the keyframe (a monocular rig), else 10.
+VI_BA_LARGE_INLIERS, VI_BA_LARGE_ITERS = 75, 4
 
 
 def _bucket(n, lo, hi):
@@ -332,6 +354,12 @@ class LocalMapping:
         self.vi_inits = []
         self.vi_ba_ms = []
         self.vi_ba_steps = []
+        # The deferred mode's interval cache: keyframe id -> the
+        # preintegration of (its prev_kf, it], with the biases and frame ids
+        # it was integrated at.
+        self._imu_pre = {}
+        self.tracking = None
+        self.counts = collections.Counter()
 
     # --- queue interface (Tracking -> mapper) ------------------------------
     def insert_keyframe(self, kf):
@@ -434,6 +462,8 @@ class LocalMapping:
                 self._process_new_keyframe(kf, m)
                 self._map_point_culling(m)
                 deferred = self.defer_mapping and m.n_keyframes() >= self.defer_min_kfs
+                vi_ba = self.imu_buffer is not None and m.imu_initialized and not self.queue \
+                    and m.n_keyframes() > 2
                 if deferred:
                     tri_job = self._prepare_triangulation(m, cap=TRI_CAP)
                     tri_fits_small = tri_job is None or len(tri_job["cand"]) <= MAPPER_SMALL["C"]
@@ -441,7 +471,7 @@ class LocalMapping:
                         self._search_in_neighbors(m)
                     ba_job = (
                         self._prepare_local_ba(m, small_ok=tri_fits_small)
-                        if not self.queue and m.n_keyframes() > 2 else None
+                        if not self.queue and m.n_keyframes() > 2 and not vi_ba else None
                     )
                 else:
                     self._create_new_map_points(m)
@@ -462,11 +492,13 @@ class LocalMapping:
                             self._dispatch_mapper_step(tri_job, ba_job, m)
                         self.lba_ms.append(1e3 * (time.perf_counter() - t0))
                     self.lba_count += 1
-            elif not self.queue and m.n_keyframes() > 2:
+            if self.imu_buffer is not None and self.defer_mapping:
+                self._close_interval(kf)
+            if (deferred and vi_ba) or (not deferred and not self.queue and m.n_keyframes() > 2):
                 with span("mapper.local_ba"):
                     t0 = time.perf_counter()
-                    if self.imu_buffer is not None and m.imu_initialized:
-                        self._local_ba_vi(m)  # joint visual-inertial, committed at once
+                    if vi_ba:
+                        self._local_ba_vi(m, windowed=self.defer_mapping)  # joint visual-inertial, committed at once
                     else:
                         self._local_ba(m)  # launched; committed at the next keyframe
                     self.lba_ms.append(1e3 * (time.perf_counter() - t0))
@@ -489,19 +521,25 @@ class LocalMapping:
         stage = m.imu_init_count
         if stage >= 3 or m.n_keyframes() < self.vi_min_kfs * (2 ** stage):
             return
-        t0 = time.perf_counter()
-        self._commit_pending_ba()
-        self._commit_deferred()
-        with self.map_lock:
-            res = visual_inertial_init(
-                m, list(m.keyframes.values()), self.imu_buffer, device=self.device,
-                noise_gyro=self.imu_noise[0], noise_acc=self.imu_noise[1],
-            )
-        if res is not None:
-            m.imu_init_count = stage + 1
-        self.vi_inits.append((stage, m.n_keyframes(), None if res is None else float(res["scale"]),
-                              1e3 * (time.perf_counter() - t0),
-                              None if res is None else res["preintegrate_steps"]))
+        with span("mapper.vi_init"):
+            t0 = time.perf_counter()
+            self._commit_pending_ba()
+            self._commit_deferred()
+            with self.map_lock:
+                res = visual_inertial_init(
+                    m, list(m.keyframes.values()), self.imu_buffer, device=self.device,
+                    noise_gyro=self.imu_noise[0], noise_acc=self.imu_noise[1],
+                    windowed=self.defer_mapping,
+                )
+                if res is not None:
+                    m.imu_init_count = stage + 1
+                    self.counts["vi_init_stages"] += 1
+                    self.counts["preintegrate_intervals"] += res["windows"]
+                    if self.defer_mapping and self.tracking is not None:
+                        self.tracking.apply_scaled_rotation(float(res["scale"]), np.asarray(res["Rwg"], np.float64))
+            self.vi_inits.append((stage, m.n_keyframes(), None if res is None else float(res["scale"]),
+                                  1e3 * (time.perf_counter() - t0),
+                                  None if res is None else res["preintegrate_steps"]))
 
     # --- stages -----------------------------------------------------------
     def _keyframe_culling(self, m, kf):
@@ -798,14 +836,21 @@ class LocalMapping:
             "kf_fixed": prob["kf_fixed"], "map": m,
         }
 
-    def _local_ba_vi(self, m):
+    def _local_ba_vi(self, m, windowed=False):
         """Joint visual-inertial local BA over the temporal keyframe chain
         (prev_kf links, at most MAX_OPT_KF): preintegrated inertial and bias
         random-walk edges between consecutive states, solved with the visual
         edges by ops/vi_ba.vi_ba_solve (ORB-SLAM3's LocalInertialBA shape,
         G2oTypes.h:522-666), and committed at once. The device wait happens
         outside the map lock, the writeback under it. Monocular rows only: the
-        reference's third (stereo) row is zero on a monocular rig."""
+        reference's third (stereo) row is zero on a monocular rig. windowed:
+        the windowed drive's form (module docstring): the intervals come from
+        the cache, the inertial Jacobians in closed form, the iteration count
+        from _vi_ba_iters."""
+        with span("mapper.vi_ba"):
+            self._local_ba_vi_body(m, windowed)
+
+    def _local_ba_vi_body(self, m, windowed):
         t0 = time.perf_counter()
         chain = [self.current_kf]
         while (len(chain) < MAX_OPT_KF and chain[-1].prev_kf is not None
@@ -844,12 +889,17 @@ class LocalMapping:
 
         # The chain's windows padded to K-1 edges, each preintegrated at its
         # start keyframe's bias.
-        gyro, acc, dts, valid, w_ok = _stack_windows(chain, self.imu_buffer)
         E = len(chain) - 1
         pad = lambda x: np.concatenate([x, np.zeros((K - 1 - E,) + x.shape[1:], x.dtype)])  # noqa: E731
-        pre_bg0, pre_ba0 = pad(kf_bg[:E]), pad(kf_ba[:E])
-        pres, steps = preintegrate_windows(pad(gyro), pad(acc), pad(dts), pad(valid), pre_bg0, pre_ba0,
-                                           self.device, sigma_g=self.imu_noise[0], sigma_a=self.imu_noise[1])
+        if windowed:
+            pres, pre_bg0, pre_ba0, w_ok, steps = self._chain_preintegration(chain, kf_bg, kf_ba, K)
+        else:
+            gyro, acc, dts, valid, w_ok = _stack_windows(chain, self.imu_buffer)
+            pre_bg0, pre_ba0, w_ok = pad(kf_bg[:E]), pad(kf_ba[:E]), pad(w_ok)
+            pres, steps = preintegrate_windows(pad(gyro), pad(acc), pad(dts), pad(valid), pre_bg0, pre_ba0,
+                                               self.device, sigma_g=self.imu_noise[0],
+                                               sigma_a=self.imu_noise[1])
+            self.counts["preintegrate_intervals"] += int(w_ok.sum())
         dev = lambda x: torch.as_tensor(x, device=self.device)  # noqa: E731
         kf_pack, mp_pack, obs_pack = prob["kf_pack"], prob["mp_pack"], prob["obs_pack"]
         cam = self.camera
@@ -858,8 +908,9 @@ class LocalMapping:
             dev(kf_pack[:, 13] > 0), dev(kf_v), dev(kf_bg), dev(kf_ba), dev(mp_pack[:, 0:3]),
             dev(mp_pack[:, 3] > 0), dev(obs_pack[:, 0].astype(np.int64)), dev(obs_pack[:, 1].astype(np.int64)),
             dev(obs_pack[:, 2:4]), dev(obs_pack[:, 5] > 0), dev(prob["obp"].astype(np.int64)),
-            pres, dev(pad(w_ok)), dev(pre_bg0), dev(pre_ba0), cam.fx, cam.fy, cam.cx, cam.cy,
+            pres, dev(w_ok), dev(pre_bg0), dev(pre_ba0), cam.fx, cam.fy, cam.cx, cam.cy,
             kf_vb_fixed=dev(np.arange(K) >= len(chain)),  # every chain state's v/b is free
+            jacobians="analytic" if windowed else "autodiff", iters=self._vi_ba_iters(windowed),
         )
         res = {k: v.cpu().numpy() for k, v in res.items()}  # waits here, outside the lock
         out_kf = np.concatenate([res["kf_R"].reshape(K, 9), res["kf_t"]], axis=1)
@@ -874,6 +925,80 @@ class LocalMapping:
                     kf.bias_a = res["kf_ba"][i].astype(np.float64)
         self.vi_ba_ms.append(1e3 * (time.perf_counter() - t0))
         self.vi_ba_steps.append(steps)
+        self.counts["vi_ba"] += 1
+
+    def _vi_ba_iters(self, windowed):
+        """LM iterations of a VI local BA: the reference's LM_ITERS per
+        frame; on the windowed drive ORB-SLAM3's, VI_BA_LARGE_ITERS where
+        the tracker matched more than VI_BA_LARGE_INLIERS, else LM_ITERS
+        (10, the same as ORB-SLAM3's)."""
+        large = self.tracking is not None and self.tracking.matches_inliers > VI_BA_LARGE_INLIERS
+        return VI_BA_LARGE_ITERS if windowed and large else LM_ITERS
+
+    # --- the deferred mode's preintegration cache ----------------------------
+    def _integrate_intervals(self, pairs, biases):
+        """Preintegrate the keyframe intervals (a, b] of `pairs` in one
+        ops/imu.preintegrate_scan call, each at its (bg, ba) of `biases`, and
+        cache each under b's id. Returns the entries."""
+        gyro, acc, dts, valid, w_ok = _stack_intervals(pairs, self.imu_buffer)
+        bg = np.stack([b[0] for b in biases]).astype(np.float32)
+        ba = np.stack([b[1] for b in biases]).astype(np.float32)
+        pres, _ = preintegrate_windows(gyro, acc, dts, valid, bg, ba, self.device, integrate=preintegrate_scan,
+                                       sigma_g=self.imu_noise[0], sigma_a=self.imu_noise[1])
+        self.counts["preintegrate_intervals"] += len(pairs)
+        out = []
+        for e, (a, b) in enumerate(pairs):
+            entry = {"lo": a.frame_id, "pre": {k: v[e:e + 1] for k, v in pres.items()}, "bg": bg[e], "ba": ba[e],
+                     "ok": bool(w_ok[e]), "n": int(valid[e].sum())}
+            self._imu_pre[b.id] = entry
+            out.append(entry)
+        return out
+
+    def _close_interval(self, kf):
+        """Integrate the interval the new keyframe closes, (prev_kf, kf], at
+        the previous keyframe's bias (zero before the init), once, when it
+        closes (ORB-SLAM3 integrates each measurement as it arrives,
+        Preintegrated::IntegrateNewMeasurement); drop culled keyframes'
+        entries."""
+        for kid in [k for k, _ in self._imu_pre.items() if k not in self.atlas.current.keyframes]:
+            del self._imu_pre[kid]
+        prev = kf.prev_kf
+        if prev is None or prev.bad:
+            return
+        zero = np.zeros(3)
+        self._integrate_intervals([(prev, kf)], [(prev.bias_g if prev.bias_g is not None else zero,
+                                                  prev.bias_a if prev.bias_a is not None else zero)])
+
+    def _chain_preintegration(self, chain, kf_bg, kf_ba, K):
+        """The preintegration of the chain's windows from the cache, padded to
+        K - 1 edges: an interval is integrated again (in one batch) where the
+        cache has none, where culling has joined it to the one before (its
+        start moved), or where its start keyframe's gyro bias has moved past
+        REINTEGRATE_GYRO_BIAS. Returns (pres, pre_bg0, pre_ba0, w_ok, steps
+        integrated)."""
+        E = len(chain) - 1
+        entries = [self._imu_pre.get(chain[i + 1].id) for i in range(E)]
+        stale = [i for i, e in enumerate(entries)
+                 if e is None or e["lo"] != chain[i].frame_id
+                 or np.linalg.norm(kf_bg[i] - e["bg"]) > REINTEGRATE_GYRO_BIAS]
+        steps = 0
+        if stale:
+            fresh = self._integrate_intervals([(chain[i], chain[i + 1]) for i in stale],
+                                              [(kf_bg[i], kf_ba[i]) for i in stale])
+            for i, e in zip(stale, fresh):
+                entries[i] = e
+            steps = max(e["n"] for e in fresh)
+        pad = K - 1 - E
+        pres = {}
+        for k, v in entries[0]["pre"].items():
+            parts = [e["pre"][k] for e in entries]
+            if pad:
+                fill = torch.eye(3, dtype=v.dtype, device=v.device) if k == "dR" else torch.zeros_like(v[0])
+                parts.append(fill.expand((pad,) + tuple(v.shape[1:])))
+            pres[k] = torch.cat(parts)
+        padded = lambda x: np.concatenate([np.stack(x), np.zeros((pad,) + np.shape(x[0]), np.float32)])  # noqa: E731
+        return (pres, padded([e["bg"] for e in entries]), padded([e["ba"] for e in entries]),
+                np.concatenate([[e["ok"] for e in entries], np.zeros(pad, bool)]), steps)
 
     @staticmethod
     def _record_done(x):

@@ -95,6 +95,7 @@ class System:
             device=self.device,
         )
         self.tracking = Tracking(self, self.atlas, self.mapper, self.settings, self.extractor, self.device)
+        self.mapper.tracking = self.tracking
 
         self._prev_state = None
         self._prev_img = None
@@ -121,9 +122,11 @@ class System:
         self._pending = []
         # What the drives did, counted where it happens: windows by length,
         # window frames handed to the window program (re-dispatches after a
-        # rewind included), speculative windows, rewinds, and frames the
-        # per-frame paths ran through the P-frame extraction.
-        self.counts = collections.Counter()
+        # rewind included), speculative windows, rewinds (scale_rewinds: those
+        # an init stage caused), and frames the per-frame paths ran through
+        # the P-frame extraction; the mapper counts into it too (init stages,
+        # VI BAs, keyframe intervals integrated).
+        self.counts = self.mapper.counts = collections.Counter()
 
         self.async_mapping = async_mapping
         if async_mapping:
@@ -669,6 +672,7 @@ class System:
                 "out": out, "run": run, "snap": snap, "imgs_dev": imgs_dev, "n_mvs": n_mvs,
                 "patch_job": patch_job, "fused_job": staged, "stereo": stereo,
                 "sched_exit": (start + len(run), cool_x, lastkf_x),
+                "imu_stage": self.atlas.current.imu_init_count,
             }
 
     def _replay_window(self, wf):
@@ -727,6 +731,8 @@ class System:
             consumed = 0
             rewound = False
             for k in range(W):
+                if k and self.atlas.current.imu_init_count != wf["imu_stage"]:
+                    break  # an init stage ran at the last frame (below)
                 ts, smv = run[k][:2]
                 scal = scal_w[k]
                 frame = Frame.from_packed(packed_w[k], timestamp=ts, image=smv.im_gray,
@@ -786,6 +792,15 @@ class System:
                     self.mapper.cooldown = 0
                     rewound = True
                     break
+            if self.atlas.current.imu_init_count != wf["imu_stage"] and (consumed < W or self._wfq):
+                # An init stage re-expressed the map and the tracker (a
+                # keyframe of this window ran it, or the mapper thread did):
+                # the window's later frames and every window chained on it
+                # tracked in the old frame. Rewind them, as after a
+                # mid-window keyframe; they are tracked again from the
+                # rescaled last frame and motion model.
+                self.counts["scale_rewinds"] += 1
+                rewound = True
 
             if patch_job is not None:
                 # The extended view is window-local: land its visible/found

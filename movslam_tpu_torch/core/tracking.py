@@ -702,6 +702,19 @@ class Tracking:
                 break
 
     # --- resets ----------------------------------------------------------
+    def apply_scaled_rotation(self, s, Rwg):
+        """Re-express the tracker in the frame of a map that
+        inertial.apply_scaled_rotation has just re-expressed (ORB-SLAM3's
+        Tracking::UpdateFrameIMU): the current and last frames' poses as the
+        keyframes' (R <- R Rwg, t <- s t), and the motion model's
+        translation scaled (its rotation is unchanged)."""
+        for frame in {id(f): f for f in (self.current, self.last_frame) if f is not None}.values():
+            if frame.pose_set:
+                frame.set_pose(frame.R @ Rwg, frame.t * s)
+        if self.velocity is not None:
+            Rv, tv = self.velocity
+            self.velocity = (Rv, tv * s)
+
     def _create_map_in_atlas(self):
         """Tracking::CreateMapInAtlas (Tracking.cc:750-777)."""
         self.atlas.create_new_map()

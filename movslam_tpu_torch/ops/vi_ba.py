@@ -19,6 +19,12 @@ LocalInertialBA shape:
 
 Pose perturbations are left-multiplicative on T_cw, as in ba_solve, so the
 visual Schur blocks and the inertial blocks share one tangent space.
+
+`jacobians="analytic"` takes the inertial Jacobians in closed form
+(_edge_linearize: ORB-SLAM3's EdgeInertial::linearizeOplus, G2oTypes.cc,
+carried over to this tangent space) instead of by torch.func; the windowed
+drive's mapper solves so, since forward-mode AD issues ~700 small kernels
+per linearization where the closed form issues ~100.
 """
 from __future__ import annotations
 
@@ -26,8 +32,8 @@ import torch
 from torch.func import jacfwd, vmap
 
 from .ba import LM_ITERS, backsub_landmarks, schur_reduce, segment_plans, visual_linearize
-from .imu import gravity_like, inertial_residual
-from .lie import se3_compose, se3_exp
+from .imu import _right_jacobian, bias_corrected_deltas, gravity_like, inertial_residual
+from .lie import hat, se3_compose, se3_exp, so3_log
 from .linalg import solve_psd
 
 # Per-edge cap on the whitening scale (see edge_whitening).
@@ -85,10 +91,71 @@ def _edge_residual(dx, pre, pose_i, pose_j, bg0, ba0, gravity, whiten):
     return torch.cat([W9 @ r9, Wg @ (bg_j - bg_i), Wa @ (ba_j - ba_i)])
 
 
+def _inv_right_jacobian(phi):
+    """Inverse SO(3) right Jacobian (ImuTypes.cc InverseRightJacobianSO3),
+    batched over leading dims."""
+    theta2 = (phi * phi).sum(-1)[..., None, None]
+    theta = torch.sqrt(theta2 + 1e-12)
+    K = hat(phi)
+    c = torch.where(theta2 > 1e-8, 1.0 / theta2 - (1.0 + torch.cos(theta)) / (2.0 * theta * torch.sin(theta)),
+                    1.0 / 12.0)
+    eye = torch.eye(3, dtype=phi.dtype, device=phi.device)
+    return eye + 0.5 * K + c * (K @ K)
+
+
+def _edge_linearize(pre, R_ci, t_ci, v_i, bg_i, ba_i, R_cj, t_cj, v_j, bg_j, ba_j, bg0, ba0, whiten, gravity):
+    """_edge_residual and its Jacobian at the zero perturbation in closed
+    form, batched over the E edges: r (E, 15), J (E, 15, 30).
+
+    EdgeInertial::linearizeOplus perturbs world-from-body poses on the
+    right, R_wb Exp(dtheta) and p + R_wb dp. A left perturbation
+    (se3_exp([rho, phi]) o T_cw) gives R_wb Exp(-phi) and, to first order,
+    p - R_wb rho, so the pose columns here are the reference's negated and
+    ordered [rho, phi]."""
+    mv = lambda M, x: (M @ x[..., None])[..., 0]  # noqa: E731
+    Rwb_i, Rwb_j = R_ci.transpose(-1, -2), R_cj.transpose(-1, -2)
+    p_i, p_j = -mv(Rwb_i, t_ci), -mv(Rwb_j, t_cj)
+    dbg = bg_i - bg0
+    dR, dv, dp = bias_corrected_deltas(pre, dbg, ba_i - ba0)
+    dt = pre["dt"][:, None]
+    eR = dR.transpose(-1, -2) @ R_ci @ Rwb_j
+    er = so3_log(eR)
+    inv_jr = _inv_right_jacobian(er)
+    vrel = mv(R_ci, v_j - v_i - gravity * dt)
+    prel = mv(R_ci, p_j - p_i - v_i * dt - 0.5 * gravity * dt * dt)
+    r9 = torch.cat([er, vrel - dv, prel - dp], -1)
+    E, f, dev = r9.shape[0], r9.dtype, r9.device
+    eye = torch.eye(3, dtype=f, device=dev)
+    J9 = torch.zeros((E, 9, 30), dtype=f, device=dev)
+    # keyframe i: pose [rho, phi], velocity, gyro and accelerometer bias
+    J9[:, 0:3, 3:6] = inv_jr @ R_cj @ Rwb_i
+    J9[:, 3:6, 3:6] = -hat(vrel)
+    J9[:, 6:9, 3:6] = -hat(prel)
+    J9[:, 6:9, 0:3] = eye
+    J9[:, 3:6, 6:9] = -R_ci
+    J9[:, 6:9, 6:9] = -R_ci * dt[..., None]
+    J9[:, 0:3, 9:12] = -inv_jr @ eR.transpose(-1, -2) @ _right_jacobian(mv(pre["JRg"], dbg)) @ pre["JRg"]
+    J9[:, 3:6, 9:12] = -pre["Jvg"]
+    J9[:, 6:9, 9:12] = -pre["Jpg"]
+    J9[:, 3:6, 12:15] = -pre["Jva"]
+    J9[:, 6:9, 12:15] = -pre["Jpa"]
+    # keyframe j: pose and velocity
+    J9[:, 0:3, 18:21] = -inv_jr
+    J9[:, 6:9, 15:18] = -(R_ci @ Rwb_j)
+    J9[:, 3:6, 21:24] = R_ci
+    W9, Wg, Wa = whiten
+    J = torch.zeros((E, 15, 30), dtype=f, device=dev)
+    J[:, 0:9] = W9 @ J9
+    J[:, 9:12, 9:12], J[:, 9:12, 24:27] = -Wg, Wg
+    J[:, 12:15, 12:15], J[:, 12:15, 27:30] = -Wa, Wa
+    r = torch.cat([mv(W9, r9), mv(Wg, bg_j - bg_i), mv(Wa, ba_j - ba_i)], -1)
+    return r, J
+
+
 def vi_ba_solve(kf_R, kf_t, kf_fixed, kf_valid, kf_v, kf_bg, kf_ba, mp_pos, mp_valid, obs_kf,
                 obs_mp, obs_uv, obs_valid, obs_by_point, pres, pre_valid, pre_bg0, pre_ba0,
                 fx, fy, cx, cy, obs_ur=None, bf=0.0, gravity=None, kf_vb_fixed=None,
-                iters=LM_ITERS):
+                iters=LM_ITERS, jacobians="autodiff"):
     """Joint visual-inertial LM bundle adjustment.
 
     Visual inputs are ba_solve's. Inertial inputs: kf_v/kf_bg/kf_ba (K, 3)
@@ -97,7 +164,8 @@ def vi_ba_solve(kf_R, kf_t, kf_fixed, kf_valid, kf_v, kf_bg, kf_ba, mp_pos, mp_v
     window mask; pre_bg0/pre_ba0 (K-1, 3), the bias each window was
     integrated at. kf_vb_fixed masks velocity/bias updates apart from the
     poses (default kf_fixed): the gauge keyframe keeps its pose pinned while
-    its velocity and biases stay free.
+    its velocity and biases stay free. jacobians: "autodiff" (the
+    reference's torch.func Jacobians) or "analytic" (_edge_linearize).
 
     Returns dict(kf_R, kf_t, kf_v, kf_bg, kf_ba, mp_pos, chi2, depth, cost,
     costs)."""
@@ -131,6 +199,8 @@ def vi_ba_solve(kf_R, kf_t, kf_fixed, kf_valid, kf_v, kf_bg, kf_ba, mp_pos, mp_v
     def inertial_linearize(R, t, v, bg, ba):
         """Residuals r (E, 15) and Jacobians J (E, 15, 30) of all K-1 edges at
         the zero perturbation."""
+        if jacobians == "analytic":
+            return _edge_linearize(*edge_args(R, t, v, bg, ba), g)
         J, r = vmap(jacfwd(edge, has_aux=True))(zero, *edge_args(R, t, v, bg, ba))
         return r, J.to(f)  # torch.func may carry the tangents in f64
 

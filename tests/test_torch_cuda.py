@@ -344,6 +344,48 @@ def test_vi_back_end_on_the_card_agrees_with_the_cpu(card):
     assert abs(rg["costs"][-1] / rc["costs"][-1] - 1.0) < 1e-2, (rg["costs"], rc["costs"])
 
 
+def test_preintegration_on_the_card_matches_plain(card):
+    """The VI local BA's intervals at the benchmark cell's sizes (euroc_vi_
+    window: 200 Hz over 20 Hz frames, a keyframe every 8 frames, so 80
+    samples an interval, and a chain of MAX_OPT_KF keyframes, 23 intervals)
+    through ops/imu.preintegrate and the interval cache's preintegrate_scan
+    on the card, against the float64 plain reference (plain/vi_reference.py)
+    on the CPU. The cache's path integrates at a gyro bias just under
+    REINTEGRATE_GYRO_BIAS from the current one and corrects the deltas to
+    first order, as _chain_preintegration does. Bounds as in
+    tests/test_plain_vi.py: each field within 1e-4 of its largest entry."""
+    from movslam_tpu_torch.core.local_mapping import MAX_OPT_KF, REINTEGRATE_GYRO_BIAS
+    from movslam_tpu_torch.ops import imu
+    from plain import vi_reference as plain
+
+    E, N, sg, sa = MAX_OPT_KF - 1, 80, 1.7e-4, 2e-3
+    rng = np.random.default_rng(18)
+    gyro = (rng.normal(0, 0.3, (E, 1, 3)) + rng.normal(0, 0.02, (E, N, 3))).astype(np.float32)
+    acc = np.array([0.0, 0.0, 9.81]) + rng.normal(0, 1.0, (E, 1, 3)) + rng.normal(0, 0.1, (E, N, 3))
+    acc = acc.astype(np.float32)
+    dts = np.full((E, N), 0.005, np.float32)
+    bg, ba = rng.normal(0, 0.01, (E, 3)), rng.normal(0, 0.05, (E, 3))
+    bg_at = bg - 0.95 * REINTEGRATE_GYRO_BIAS / np.sqrt(3)
+    ba_at = ba - 0.05
+    dev = lambda x: torch.as_tensor(np.asarray(x, np.float32), device=card)  # noqa: E731
+    args = (dev(gyro), dev(acc), dev(dts), torch.ones((E, N), dtype=torch.bool, device=card))
+    paths = {"uncached": imu.preintegrate(*args, dev(bg), dev(ba), sigma_g=sg, sigma_a=sa)}
+    scan = imu.preintegrate_scan(*args, dev(bg_at), dev(ba_at), sigma_g=sg, sigma_a=sa)
+    dR, dv, dp = imu.bias_corrected_deltas(scan, dev(bg - bg_at), dev(ba - ba_at))
+    paths["cached"] = {**scan, "dR": dR, "dv": dv, "dp": dp}
+    worst = {}
+    for e in range(E):
+        now = plain.preintegrate(gyro[e], acc[e], dts[e], bg[e], ba[e], sg, sa)
+        at = plain.preintegrate(gyro[e], acc[e], dts[e], bg_at[e], ba_at[e], sg, sa)
+        for name, pre in paths.items():
+            for k in now:
+                want = (now if name == "uncached" or k in ("dR", "dv", "dp") else at)[k].numpy()
+                err = float(np.abs(pre[k][e].double().cpu().numpy() - want).max()) / max(np.abs(want).max(), 1e-30)
+                worst[name, k] = max(worst.get((name, k), 0.0), err)
+    print({f"{n}.{k}": f"{v:.2e}" for (n, k), v in worst.items()})
+    assert all(v <= 1e-4 for v in worst.values()), worst
+
+
 def test_vi_system_defaults_to_the_card(card):
     """System(settings, IMU_MONOCULAR) without device= runs on the card: 14
     frames per frame with IMU samples, then 16 through the windowed drive, the

@@ -11,7 +11,9 @@ windowed one:
     W=8, batches of 8, flush=False, then flush=True). Its init stages land
     between windows; one more runs while a speculative window is in flight.
 Bounds: the reference's metric one (median keyframe camera-centre error,
-no fitted scale, < 0.15 * max(span, 0.5)), 0 lost. The 60- and 96-frame
+no fitted scale, < 0.15 * max(span, 0.5)), 0 lost; on the windowed drive
+also every pose answered from the first init stage on (the windowed
+drive's departures, core/local_mapping.py). The 60- and 96-frame
 drives of both packages are in tests/test_torch_vi_jax.py (slow tier) and
 chip_smoke.py phase 7."""
 import numpy as np
@@ -36,16 +38,17 @@ def vi_settings():
     return s
 
 
+def _center(stream, k):
+    R, t = stream.gt_pose(k)
+    return -(R.T @ t)
+
+
 def metric_errors(system, stream, n):
     """Keyframe camera-centre errors (no fitted scale) and the bound of
     tests/test_vi_system.py."""
-    def center(k):
-        R, t = stream.gt_pose(k)
-        return -(R.T @ t)
-
     kfs = system.atlas.current.keyframes.values()
-    errs = np.array([np.linalg.norm(kf.center() - center(kf.frame_id)) for kf in kfs])
-    span = float(np.linalg.norm(np.ptp(np.array([center(k) for k in range(n)]), axis=0)))
+    errs = np.array([np.linalg.norm(kf.center() - _center(stream, kf.frame_id)) for kf in kfs])
+    span = float(np.linalg.norm(np.ptp(np.array([_center(stream, k) for k in range(n)]), axis=0)))
     return errs, 0.15 * max(span, 0.5)
 
 
@@ -73,9 +76,17 @@ def windowed(stream_items):
     there the mapper runs the init once more, as its thread may at any time
     (LocalMapping._staged_vi_init under map_lock), before that window, tracked
     against the pre-scale snapshot and pose chain, is replayed."""
-    _, items = stream_items
+    stream, items = stream_items
     system = System(vi_settings(), IMU_MONOCULAR, device="cpu")
     system.mapper.vi_min_kfs = VI_MIN_KFS
+    stages = []  # (frames replayed, the tracker's last frame and its error) at each stage
+    rescale = system.tracking.apply_scaled_rotation
+
+    def recorded(s, Rwg):
+        rescale(s, Rwg)
+        lf = system.tracking.last_frame
+        stages.append((system.image_count, lf.id, np.linalg.norm(lf.center() - _center(stream, lf.id))))
+    system.tracking.apply_scaled_rotation = recorded
     poses, crossed = [], None
     for k in range(0, N_WINDOWED, 8):
         poses += system.track_monocular_batch(items[k:k + 8], flush=False)
@@ -83,12 +94,15 @@ def windowed(stream_items):
         if crossed is None and system._wfq and m.imu_initialized:
             crossed = {"windows_in_flight": len(system._wfq), "frames_in_flight": sum(len(w["run"]) for w in system._wfq),
                        "change_index": m.change_index, "stage": m.imu_init_count,
-                       "snapshot_key": system._snapshot_key}
+                       "snapshot_key": system._snapshot_key, "velocity": system.tracking.velocity[1].copy()}
             system.mapper.vi_min_kfs = 1  # the next stage is due now
             system.mapper._staged_vi_init(m)
             system.mapper.vi_min_kfs = VI_MIN_KFS
+            crossed["velocity_after"] = system.tracking.velocity[1].copy()
+            crossed["scale"] = system.mapper.vi_inits[-1][2]
     poses += system.track_monocular_batch([], flush=True)
     system.shutdown()
+    crossed["stages"] = stages
     return system, poses, crossed
 
 
@@ -133,9 +147,29 @@ def test_windowed_vi_drive_crosses_the_init_stage(stream_items, windowed):
     assert crossed is not None and crossed["windows_in_flight"] >= 1, crossed
     assert m.imu_init_count == crossed["stage"] + 1 and m.change_index > crossed["change_index"]
     assert not system._wfq and not system._pending
-    stale = system._snapshot
+    # The windows in flight went back to be tracked again from the rescaled
+    # tracker (scale_rewinds), on a snapshot rebuilt after the stage.
+    assert c["scale_rewinds"] >= 1 and crossed["snapshot_key"] != system._snapshot_key
     system._refresh_snapshot()
-    assert system._snapshot is not stale and system._snapshot_key[2] == m.change_index
+    assert system._snapshot_key[2] == m.change_index
+
+
+def test_windowed_vi_drive_answers_at_the_scale_of_each_stage(stream_items, windowed):
+    """Each stage re-expresses the tracker with the map (Tracking.
+    apply_scaled_rotation): its last frame lands on the truth and the motion
+    model's translation takes the stage's scale; every pose answered from
+    the first stage on is metric, not only the keyframes; and the local BA
+    is the visual-inertial one on the windowed drive."""
+    stream, _ = stream_items
+    system, poses, crossed = windowed
+    stages = crossed["stages"]
+    _, bound = metric_errors(system, stream, N_WINDOWED)
+    assert len(stages) == system.counts["vi_init_stages"] == system.atlas.current.imu_init_count >= 2
+    assert all(err < bound for _, _, err in stages), stages
+    np.testing.assert_allclose(crossed["velocity_after"], crossed["velocity"] * crossed["scale"], rtol=1e-6)
+    errs = [np.linalg.norm(-(p[0].T @ p[1]) - _center(stream, k)) for k, p in enumerate(poses) if k >= stages[0][0]]
+    assert len(errs) >= N_WINDOWED // 2 and max(errs) < bound, (max(errs), bound)
+    assert system.counts["vi_ba"] >= 1 and len(system.mapper.vi_ba_ms) == system.counts["vi_ba"]
 
 
 def test_windowed_drive_files_imu_samples_like_the_per_frame_drive(stream_items, per_frame, windowed):
